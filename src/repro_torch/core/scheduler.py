@@ -1,0 +1,1624 @@
+"""FlintScheduler — the serverless SchedulerBackend (paper §III).
+
+Lives on the client and drives the physical plan in one of two modes:
+
+PIPELINED (default, ``cfg.pipeline_stages``): every stage's tasks enter a
+single launch frontier ordered by stage id and bounded by the concurrency
+cap. Consumer tasks are invoked WHILE their producers are still running;
+they drain their queues as messages arrive and terminate on per-producer
+EOS control messages (the producer quorum is known at plan time), so queue
+transport and consumer-side folding overlap producer compute — no stage
+barrier. Producer-stage work (retries, chained continuations) always
+outranks consumer launches in the frontier, which keeps the window
+deadlock-free: a slot freed by a producer completion is re-offered to
+producer work before any consumer takes it.
+
+BARRIER (``pipeline_stages=False``, the paper's original design kept for
+A/B measurement): one stage at a time. Termination is the SAME EOS
+protocol as pipelined mode — producers close their streams with
+per-partition sequence totals and consumers count down the plan-time
+producer quorum. (The original post-hoc expectation-table handover died
+with the pluggable-transport refactor; both modes now share one
+termination path, barrier mode simply delays consumer launch.)
+
+Intermediate data moves over a pluggable ShuffleTransport
+(core.shuffle): per-partition SQS queues or a Lambada-style S3 object
+exchange, chosen per shuffle via the DAG-level ``transport`` hint with
+``cfg.shuffle_backend`` as the default. A CSE-shared shuffle (one
+producer stage, N consumer groups — docs/dag_fanout.md) is released per
+(shuffle, consumer-stage): each completed consumer frees only its own
+group's channels, and the shuffle is destroyed once EVERY consuming
+stage has drained. Queue/prefix lifecycle (open/release/destroy) and the
+job-end garbage collection of transient object-store keys (``_spill/``,
+``_payload/``, ``_result/``, ``_exchange/``, stale ``_cache/``) are
+driven from here.
+
+Both modes share task semantics: CONTINUATIONS re-invoked on warm
+containers (executor chaining — a chained producer only emits EOS from its
+final link), failures retried with the same task identity (idempotent via
+stable partitioning + seq-id dedup), stragglers get a speculative
+duplicate (first completion wins; duplicate messages AND duplicate EOS are
+dropped by the same dedup). Consumer (shuffle-reading) tasks are as
+retryable and speculatable as producers: SQS receives are visibility-
+timeout claims, acked only at task completion, so a dead consumer's
+messages redeliver to its retry and two competing drains merely race on
+acks. In pipelined mode a consumer is only speculated once its producers
+are all done (a blocked consumer is waiting, not straggling). When a
+consumer completes, its queues are deleted immediately so a losing
+duplicate aborts on QueueGone instead of waiting out the drain timeout.
+Straggler thresholds compare scheduler-observed latency and allow for one
+cold start.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import heapq
+import itertools
+import pickle
+import random
+import re
+import threading
+import time
+from typing import Any
+
+from repro_torch.core.costs import (S3_EXCHANGE_BATCH_LIMIT, CostLedger,
+                              pick_join_strategy, pick_shuffle_transport)
+from repro_torch.core.dag import ShuffleRead, StagePlan, TaskDef
+from repro_torch.core.executors import (FlintConfig, LambdaSim, _stable_order,
+                                  serialize_task)
+from repro_torch.core.faults import FaultInjector, FaultPlan
+from repro_torch.core.queues import ObjectStoreSim, SQSSim
+from repro_torch.core.retry import RetryBudget, TransientServiceError
+from repro_torch.core.shuffle import TransportSet, pack_batch, unpack_batch
+
+#: transient object-store prefixes swept by the job-end GC (the S3
+#: exchange's _exchange/ prefix is swept by its transport's gc();
+#: _broadcast/ holds adaptive broadcast-join build sides — job-scoped,
+#: never outliving the query)
+GC_PREFIXES = ("_spill/", "_payload/", "_result/", "_broadcast/")
+
+#: streaming checkpoints (offsets + window state, repro_torch.streaming) live
+#: under this prefix. Deliberately NOT in GC_PREFIXES: a streaming query
+#: runs MANY jobs (one per micro-batch) and its checkpoints must outlive
+#: each of them — the query's own cleanup()/retention sweeps the prefix,
+#: and the service close()/leak_report() treat anything left as a leak
+STREAM_PREFIX = "_stream/"
+
+#: attempt number used for lineage-recovery replays: far past any real
+#: retry count, so targeted first-attempt faults (straggle_s,
+#: fail_after_records, probabilistic invocation timeouts) don't re-fire —
+#: while the task's shuffle identity (src = stage/index) stays unchanged,
+#: keeping the replay's re-emission byte-identical for downstream dedup
+_REPLAY_ATTEMPT = 1_000_000
+
+
+class StageFailure(RuntimeError):
+    """A stage cannot make progress. Structured so callers branch on the
+    ROOT CAUSE instead of parsing message text: ``error_type`` carries the
+    executor-side exception class name, ``retryable`` whether a coarser
+    recovery above the scheduler (elastic re-plan, cache
+    re-materialization) could still succeed."""
+
+    def __init__(self, msg, error_type="", *, stage_id=None,
+                 task_index=None, attempts=0, retryable=False, detail=None):
+        super().__init__(msg)
+        self.error_type = error_type
+        self.stage_id = stage_id
+        self.task_index = task_index
+        self.attempts = attempts
+        self.retryable = retryable
+        self.detail = detail or {}
+
+
+class _NullSlots:
+    """Solo-mode slot source: the in-process pool (``cfg.concurrency``)
+    is the only launch bound, so every slot request succeeds instantly.
+    The multi-tenant service replaces this with a ``JobSlots`` lease on
+    its weighted fair-share pool (repro_torch.svc.fairshare) — same protocol,
+    but ``try_acquire`` can say no and ``wait`` can block."""
+
+    def try_acquire(self) -> bool:
+        return True
+
+    def acquire(self):
+        pass
+
+    def release(self):
+        pass
+
+    def set_demand(self, n: int):
+        pass
+
+    def contended(self) -> bool:
+        return False
+
+    def wait(self, timeout: float):
+        pass
+
+    def detach(self):
+        pass
+
+
+def _consumed_shuffles(stage: StagePlan) -> set[int]:
+    sids: set[int] = set()
+    for task in stage.tasks:
+        if isinstance(task.input, ShuffleRead):
+            sids.update(sid for sid, _ in task.input.parts)
+    return sids
+
+
+class FlintScheduler:
+    def __init__(self, cfg: FlintConfig, ledger: CostLedger | None = None,
+                 store: ObjectStoreSim | None = None, *,
+                 fault_plan: dict | None = None, verbose: bool = False,
+                 cache_index: dict | None = None, binding=None):
+        cfg.validate()
+        if (cfg.shuffle_backend in ("sqs", "auto")
+                and cfg.visibility_timeout_s >= cfg.drain_timeout_s):
+            # otherwise a retried consumer times out waiting for its dead
+            # predecessor's claims to expire — and fails with a confusing
+            # "queue incomplete" instead of this
+            raise ValueError(
+                f"visibility_timeout_s ({cfg.visibility_timeout_s}) must be "
+                f"< drain_timeout_s ({cfg.drain_timeout_s}) or consumer "
+                f"retries cannot outwait redelivery")
+        self.cfg = cfg
+        self.ledger = ledger or CostLedger()
+        self.store = store or ObjectStoreSim(self.ledger)
+        self.sqs = SQSSim(self.ledger, duplicate_prob=cfg.duplicate_prob,
+                          visibility_timeout=cfg.visibility_timeout_s)
+        # service-mode binding (repro_torch.svc): per-job slice of the shared
+        # pool — slot lease, shuffle-share registry, account concurrency
+        # gauge, tenant quota guard, per-job key scope. Solo mode runs
+        # with inert defaults and behaves exactly as before.
+        self._binding = binding
+        self._slots = binding.slots if binding is not None else _NullSlots()
+        self._share = binding.share if binding is not None else None
+        self._job_id = binding.job_id if binding is not None else 0
+        self._scope = binding.scope if binding is not None else ""
+        self._cost_guard = (binding.cost_guard
+                            if binding is not None else None)
+        # the chaos layer: one seeded injector consulted by every service
+        # sim, one job-wide retry budget every retry layer draws from
+        plan = FaultPlan.coerce(fault_plan)
+        self.faults = FaultInjector(plan, self.ledger)
+        if binding is not None and binding.retry_budget is not None:
+            # per-tenant budget: every job the tenant runs draws from it
+            self.retry_budget = binding.retry_budget
+        else:
+            self.retry_budget = RetryBudget(cfg.retry_budget)
+        if plan.has_service_faults:
+            # the per-scheduler SQS sim is always ours to chaos; the
+            # object store is ours ONLY solo — in service mode it is
+            # shared across live jobs and carries ONE service-wide
+            # injector, installed (and detached) by the service itself
+            self.sqs.faults = self.faults
+            if binding is None:
+                self.store.faults = self.faults
+        self.transports = TransportSet(cfg, self.ledger, self.store,
+                                       self.sqs, budget=self.retry_budget)
+        self.lam = LambdaSim(cfg, self.ledger, self.store, self.sqs,
+                             self.transports,
+                             faults=None if plan.empty else self.faults,
+                             budget=self.retry_budget,
+                             gauge=(binding.gauge
+                                    if binding is not None else None))
+        self.lam.scope = self._scope
+        self.pool = cf.ThreadPoolExecutor(max_workers=cfg.concurrency)
+        self.verbose = verbose
+        self.stage_stats: list[dict] = []
+        # recovery bookkeeping: 429 re-dispatches, lost-input detections,
+        # and lineage resubmissions (docs/fault_tolerance.md)
+        self.recovery_stats = {"throttled": 0, "lost_inputs": 0,
+                               "stage_resubmits": 0, "replayed_tasks": 0}
+        self._dispatch_sleep = 0.0  # decorrelated-jitter state, 0 = idle
+        self._backoff_rng = random.Random(plan.seed ^ 0x5DEECE66D)
+        self._stage_retries: dict[int, int] = {}  # stage idx -> resubmits
+        self._stages: list[StagePlan] = []
+        self._producer_stage_of: dict[int, int] = {}
+        self._stage_done: list[bool] = []
+        self._lock = threading.Lock()
+        # shuffle_id -> (producer nparts, transport name); set per run()
+        self._sid_meta: dict[int, tuple[int, str]] = {}
+        # shuffle_id -> {consuming stage indices} / {finished consumers}:
+        # a CSE-shared shuffle is only destroyed once EVERY consuming
+        # stage has drained its group (per-(shuffle, consumer-stage) GC)
+        self._sid_consumers: dict[int, set] = {}
+        self._sid_drained: dict[int, set] = {}
+        # context-owned RDD.cache() registry: tokens listed here survive
+        # the job-scoped GC (they feed later actions); anything else
+        # under _cache/ is stale and swept
+        self._cache_index = cache_index
+        self.gc_report: dict[str, int] = {}
+        self._gc_done = False
+        # ---- adaptive execution state (docs/adaptive_execution.md) ----
+        # measured shuffle output: shuffle_id -> {partition: [bytes,
+        # records]}, folded from executor shuffle_out deltas on successful
+        # responses. Advisory — a link that failed after a partial flush
+        # counts its retry's re-emission too — so it only steers replan
+        # CHOICES, never correctness-bearing quorums
+        self.shuffle_stats: dict[int, dict[int, list]] = {}
+        self.adaptive_stats = {"broadcast_joins": 0, "coalesced_stages": 0,
+                               "transport_rechoices": 0,
+                               "broadcast_rebuilds": 0}
+        # broadcast prefix -> rebuild recipe (small-side stage index +
+        # consumer group), for lineage recovery of a lost _broadcast/ key
+        self._broadcasts: dict[str, dict] = {}
+        self._absorbed: dict[int, int] = {}  # large-producer si -> join si
+
+    # ------------------------------------------------------------------
+    def run(self, stages: list[StagePlan]):
+        self._stages = stages
+        self._stage_done = [False] * len(stages)
+        self._stage_retries = {}
+        self.shuffle_stats = {}
+        self._broadcasts = {}
+        self._absorbed = {}
+        self._producer_stage_of = {
+            s.write.shuffle_id: si for si, s in enumerate(stages)
+            if s.write is not None}
+        self._sid_meta = {
+            s.write.shuffle_id:
+                (s.write.nparts,
+                 s.write.transport or self.cfg.fallback_backend)
+            for s in stages if s.write is not None}
+        for stage in stages:
+            for sid_tr in (t.input.transports or {} for t in stage.tasks
+                           if isinstance(t.input, ShuffleRead)):
+                for sid, tname in sid_tr.items():
+                    if sid not in self._sid_meta:
+                        # FOREIGN shuffle: produced by another job's
+                        # scheduler, joined through the service share
+                        # registry (docs/multi_tenant.md) — drainable
+                        # here, never produced, released, or destroyed
+                        # here (nparts 0 keeps destroy a no-op)
+                        self._sid_meta[sid] = (
+                            0, tname or self.cfg.fallback_backend)
+        self._sid_consumers = {}
+        for si, stage in enumerate(stages):
+            for sid in _consumed_shuffles(stage):
+                self._sid_consumers.setdefault(sid, set()).add(si)
+        self._sid_drained = {sid: set() for sid in self._sid_consumers}
+        if (self.cfg.visibility_timeout_s >= self.cfg.drain_timeout_s
+                and any(t == "sqs" for _, t in self._sid_meta.values())):
+            # the constructor guard only sees the engine default; a
+            # per-shuffle transport="sqs" hint must not sneak past it into
+            # the same unrecoverable-retry failure
+            raise ValueError(
+                f"visibility_timeout_s ({self.cfg.visibility_timeout_s}) "
+                f"must be < drain_timeout_s ({self.cfg.drain_timeout_s}) "
+                f"for shuffles routed over sqs, or consumer retries cannot "
+                f"outwait redelivery")
+        if self.cfg.pipeline_stages:
+            return self._run_pipelined(stages)
+        return self._run_barrier(stages)
+
+    def _transport_of(self, sid: int):
+        return self.transports.get(self._sid_meta[sid][1])
+
+    def _open_shuffle(self, write):
+        """Create the shuffle's channels before any producer launches."""
+        name = write.transport or self.cfg.fallback_backend
+        tr = self.transports.get(name)
+        tr.open(write.shuffle_id, write.nparts,
+                groups=write.consumer_groups)
+        if self._share is not None:
+            # a service-shared shuffle: record the owning transport so a
+            # consumer group joining from ANOTHER job's plan after this
+            # point can raise the all-groups-released reclaim threshold
+            # (transport.add_group) through the registry
+            self._share.notify_open(write.shuffle_id, tr, write)
+
+    def _destroy_shuffles(self, sids):
+        """All-consumers-done sweep — the transport skips partitions
+        already released per-task (each release is billed; re-issuing
+        deletes for channels the scheduler knows are gone would skew the
+        benchmarks' request counts)."""
+        for sid in sids:
+            nparts, _ = self._sid_meta[sid]
+            self._transport_of(sid).destroy(sid, nparts)
+
+    def _consumer_stage_done(self, si: int, stage: StagePlan):
+        """Per-(shuffle, consumer-stage) GC: record that stage ``si``
+        drained its groups; destroy only the shuffles whose EVERY
+        consuming stage has now finished — a CSE-shared shuffle must stay
+        alive for its remaining consumer groups."""
+        dead = []
+        for sid in _consumed_shuffles(stage):
+            drained = self._sid_drained[sid]
+            drained.add(si)
+            if drained >= self._sid_consumers[sid]:
+                if self._share is not None and self._share.manages(sid):
+                    # service-shared: other jobs may still be draining —
+                    # the registry destroys once every participant is done
+                    self._share.job_drained(sid, self._job_id)
+                else:
+                    dead.append(sid)
+        self._destroy_shuffles(dead)
+
+    def _release_task_partitions(self, task: TaskDef):
+        """A completed consumer's shuffle partitions are dead FOR ITS
+        GROUP: release them now so a losing speculative duplicate (or a
+        late retry of a task that already won) aborts immediately
+        (QueueGone / exchange tombstone) instead of blocking a pool thread
+        until the drain timeout. Sibling consumer groups keep draining."""
+        if isinstance(task.input, ShuffleRead):
+            groups = task.input.groups or [0] * len(task.input.parts)
+            parts = task.input.partitions or [task.input.partition]
+            for (sid, _), g in zip(task.input.parts, groups):
+                for p in parts:
+                    self._transport_of(sid).release_partition(
+                        sid, p, consumer_group=g)
+
+    # ----------------------------------------- adaptive replanning (AQE)
+    def _adaptive_on(self) -> bool:
+        """Runtime replanning runs SOLO only: in service mode the plan
+        shape was published to the cross-job CSE registry, and rewriting
+        a shuffle another tenant may join would break that contract."""
+        return self.cfg.adaptive and self._binding is None
+
+    def _note_shuffle_stats(self, stage: StagePlan, resp: dict):
+        """Fold one successful response's per-partition shuffle-output
+        deltas (wire bytes, records) into the running measurement for the
+        stage's shuffle — the feedback signal every replan decision reads."""
+        out = (resp.get("stats") or {}).get("shuffle_out")
+        if not out or stage.write is None:
+            return
+        agg = self.shuffle_stats.setdefault(stage.write.shuffle_id, {})
+        for p, (nbytes, nrecs) in out.items():
+            st = agg.setdefault(int(p), [0, 0])
+            st[0] += nbytes
+            st[1] += nrecs
+
+    def _measured_sid_bytes(self, sid: int) -> float | None:
+        stats = self.shuffle_stats.get(sid)
+        if stats is None:
+            return None
+        return float(sum(b for b, _ in stats.values()))
+
+    def _find_join_gates(self, stages) -> list[tuple[int, int, int]]:
+        """Two-sided shuffle joins eligible for runtime broadcast
+        conversion: returns ``(small_si, large_si, join_si)`` triples,
+        where ``small`` is the producer stage whose measured output will
+        decide the conversion once it completes. Eligible means: both
+        sides produced by this job, each consumed ONLY by the join stage
+        (a CSE-shared side must stay a shuffle), the join semantics leave
+        the broadcast side non-preserved (inner: either side; left: only
+        the right side may broadcast; right: only the left; outer:
+        nothing), and the join's ops carry no per-task cache
+        materialization (its spec is keyed to the planned task count)."""
+        gates: list[tuple[int, int, int]] = []
+        used: set[int] = set()
+        for jsi, stage in enumerate(stages):
+            if not stage.tasks:
+                continue
+            inp = stage.tasks[0].input
+            if not (isinstance(inp, ShuffleRead) and len(inp.parts) == 2
+                    and not inp.self_join
+                    and all(m == "join" for _, m in inp.parts)):
+                continue
+            if any(kind == "cache" for kind, _ in stage.tasks[0].ops):
+                continue
+            sid_l, sid_r = inp.parts[0][0], inp.parts[1][0]
+            psl = self._producer_stage_of.get(sid_l)
+            psr = self._producer_stage_of.get(sid_r)
+            if psl is None or psr is None or psl == psr:
+                continue
+            if (self._sid_consumers.get(sid_l) != {jsi}
+                    or self._sid_consumers.get(sid_r) != {jsi}):
+                continue
+            wl, wr = stages[psl].write, stages[psr].write
+            if wl.consumer_groups != 1 or wr.consumer_groups != 1:
+                continue
+            if self._share is not None and (self._share.manages(sid_l)
+                                            or self._share.manages(sid_r)):
+                continue
+            how = inp.join_how
+            if how == "outer":
+                continue  # both sides preserved: no broadcastable side
+            if how == "left":
+                small, large = psr, psl  # only the right side may ship
+            elif how == "right":
+                small, large = psl, psr
+            elif wl.est_bytes <= wr.est_bytes:
+                small, large = psl, psr
+            else:
+                small, large = psr, psl
+            if not stages[small].tasks or not stages[large].tasks:
+                continue
+            if {small, large, jsi} & used:
+                continue  # overlapping gates: keep the first, skip the rest
+            used |= {small, large, jsi}
+            gates.append((small, large, jsi))
+        return gates
+
+    def _publish_broadcast(self, prefix: str, small_si: int,
+                           group: int = 0):
+        """Drain the completed small join side ON THE DRIVER (billed
+        receives/GETs through its transport, exactly what a consumer
+        stage would have paid) and re-publish it as content-addressed
+        ``_broadcast/`` objects plus a batch-count manifest. The records
+        are sorted before packing so the published bytes are a pure
+        function of the record multiset — a rebuild after loss publishes
+        identical objects and mid-flight readers stay consistent."""
+        stage = self._stages[small_si]
+        sid = stage.write.shuffle_id
+        nparts, tname = self._sid_meta[sid]
+        tr = self.transports.get(tname)
+        quorum = len(stage.tasks)
+        records: list = []
+        handles = []
+        claim: list = []
+        for p in range(nparts):
+            handle = tr.open_drain(sid, p, quorum, group=claim,
+                                   consumer_group=group)
+            for _src, _seq, body in handle:
+                records.extend(unpack_batch(body, self.lam.rstore))
+            handles.append(handle)
+        for handle in handles:
+            handle.ack()
+        records.sort(key=_stable_order)
+        bodies = pack_batch(records, limit=S3_EXCHANGE_BATCH_LIMIT)
+        for seq, body in enumerate(bodies):
+            self.lam.rstore.put(f"{prefix}{seq:06d}", body)
+        self.lam.rstore.put_obj(f"{prefix}manifest", len(bodies))
+        tr.destroy(sid, nparts)
+
+    def _try_broadcast_convert(self, small_si: int, large_si: int,
+                               join_si: int) -> bool:
+        """The tentpole rewrite: once the small side's MEASURED output is
+        known (its producer stage completed), decide shuffle-vs-broadcast
+        from actual volume. On broadcast: the driver re-publishes the
+        small side under ``_broadcast/``, the large producer stage keeps
+        its own input and ops but gains a ``bcjoin`` probe op plus the
+        join stage's pipeline, write, and action — and the join stage is
+        absorbed (its large-side shuffle never opens, shipping zero
+        bytes). Downstream EOS quorums follow the large stage's task
+        count via the live ``producer_counts`` reads. Returns True when
+        converted; False leaves the planned shuffle join untouched."""
+        stages = self._stages
+        small, large, join = stages[small_si], stages[large_si], \
+            stages[join_si]
+        sid_s = small.write.shuffle_id
+        measured = self._measured_sid_bytes(sid_s)
+        if measured is None:
+            return False
+        jt = join.tasks[0]
+        choice = pick_join_strategy(
+            measured, max(large.write.est_bytes, measured),
+            len(large.tasks), large.write.nparts, len(large.tasks),
+            self.cfg.broadcast_threshold_bytes)
+        if choice != "broadcast":
+            return False
+        k = jt.input.parts.index((sid_s, "join"))
+        group = jt.input.groups[k] if jt.input.groups else 0
+        prefix = f"_broadcast/{self._scope}sid{sid_s}/"
+        self._publish_broadcast(prefix, small_si, group)
+        self._broadcasts[prefix] = {"stage": small_si, "group": group}
+        spec = {"prefix": prefix, "side": small.write.key_side or "left",
+                "how": jt.input.join_how}
+        extra_ops = [("bcjoin", spec)] + list(jt.ops)
+        for t in large.tasks:
+            t.ops = list(t.ops) + extra_ops
+            t.write = join.write
+        large.write = join.write
+        large.action = join.action
+        large.save_prefix = join.save_prefix
+        large.limit = join.limit
+        if join.write is not None:
+            sid_j = join.write.shuffle_id
+            self._producer_stage_of[sid_j] = large_si
+            for ci in self._sid_consumers.get(sid_j, ()):
+                stages[ci].producer_counts[sid_j] = len(large.tasks)
+        join.tasks = []
+        join.write = None
+        join.action = None
+        join.save_prefix = None
+        self._absorbed[large_si] = join_si
+        self.adaptive_stats["broadcast_joins"] += 1
+        if self.verbose:
+            print(f"[flint] adaptive: join stage {join.id} -> broadcast "
+                  f"({measured:.0f}B build side from shuffle {sid_s})")
+        return True
+
+    def _broadcast_intact(self, prefix: str) -> bool:
+        """The same manifest check ``broadcast_read`` performs: does the
+        store hold exactly the advertised batch count under prefix?"""
+        expected, data = None, 0
+        for key in self.lam.rstore.list(prefix):
+            if key.endswith("manifest"):
+                expected = self.lam.rstore.get_obj(key)
+            else:
+                data += 1
+        return expected is not None and expected == data
+
+    def _rebuild_broadcast(self, prefix: str) -> bool:
+        """Lineage recovery for a lost ``_broadcast/`` object: reopen the
+        small side's channels, replay its producer stage (byte-identical
+        re-emission), re-drain on the driver and re-publish — the sorted
+        content-addressed pack writes the same bytes, so probe tasks that
+        already read the old copy agree with ones reading the new.
+        Charged against the per-stage resubmission budget."""
+        info = self._broadcasts.get(prefix)
+        if info is None:
+            return False
+        if self._broadcast_intact(prefix):
+            # a peer task's failure already triggered the rebuild (many
+            # probe tasks trip over the same lost object concurrently) —
+            # the store is whole again, just rerun without charging
+            return True
+        key = ("broadcast", prefix)
+        n = self._stage_retries.get(key, 0) + 1
+        if n > self.cfg.max_stage_retries:
+            return False
+        self._stage_retries[key] = n
+        small_si, group = info["stage"], info["group"]
+        write = self._stages[small_si].write
+        sid = write.shuffle_id
+        self._transport_of(sid).reopen(sid, write.nparts,
+                                       groups=write.consumer_groups)
+        self._replay_stage(small_si)
+        self._publish_broadcast(prefix, small_si, group)
+        self.adaptive_stats["broadcast_rebuilds"] += 1
+        self.recovery_stats["stage_resubmits"] += 1
+        return True
+
+    def _coalesce_stage(self, stage: StagePlan):
+        """Barrier-mode partition coalescing: with every input shuffle
+        fully produced and measured, fold runs of CONTIGUOUS tiny
+        partitions (under ``cfg.coalesce_min_bytes`` together) into single
+        consumer tasks — each drains its whole partition list in order, so
+        index-ordered merges (collect, range-sorted output) are
+        unchanged. Downstream EOS quorums follow the new task count via
+        the live ``producer_counts`` reads."""
+        floor = float(self.cfg.coalesce_min_bytes)
+        if not floor or len(stage.tasks) <= 1:
+            return
+        if any(not isinstance(t.input, ShuffleRead) or t.input.partitions
+               or t.input.partition != i
+               for i, t in enumerate(stage.tasks)):
+            return
+        sids = [sid for sid, _ in stage.tasks[0].input.parts]
+        per_part: list[float] = []
+        for p in range(len(stage.tasks)):
+            tot = 0.0
+            for sid in sids:
+                st = self.shuffle_stats.get(sid)
+                if st is None:
+                    return  # unmeasured input (e.g. foreign): keep plan
+                tot += st.get(p, (0, 0))[0]
+            per_part.append(tot)
+        groups: list[list[int]] = []
+        cur: list[int] = []
+        cur_bytes = 0.0
+        for p, b in enumerate(per_part):
+            cur.append(p)
+            cur_bytes += b
+            if cur_bytes >= floor:
+                groups.append(cur)
+                cur, cur_bytes = [], 0.0
+        if cur:
+            if groups:
+                groups[-1].extend(cur)
+            else:
+                groups.append(cur)
+        if len(groups) >= len(stage.tasks):
+            return
+        new_tasks = []
+        for i, grp in enumerate(groups):
+            t = stage.tasks[grp[0]]
+            t.index = i
+            t.input.partition = grp[0]
+            t.input.partitions = list(grp) if len(grp) > 1 else None
+            new_tasks.append(t)
+        stage.tasks = new_tasks
+        if stage.write is not None:
+            sid_w = stage.write.shuffle_id
+            for ci in self._sid_consumers.get(sid_w, ()):
+                self._stages[ci].producer_counts[sid_w] = len(new_tasks)
+        self.adaptive_stats["coalesced_stages"] += 1
+        if self.verbose:
+            print(f"[flint] adaptive: stage {stage.id} coalesced to "
+                  f"{len(new_tasks)} task(s)")
+
+    def _rechoose_transport(self, stage: StagePlan):
+        """Re-run the SQS-vs-S3 cost choice for a not-yet-opened shuffle
+        from MEASURED input volume, scaled by the planner's own
+        output/input ratio. Only cost-model ("auto") choices move —
+        explicit per-shuffle hints and engine defaults stay pinned — and
+        a move to SQS is refused when the run-wide visibility guard
+        would reject it."""
+        write = stage.write
+        if write is None or not write.auto_transport:
+            return
+        sids = _consumed_shuffles(stage)
+        if not sids:
+            return
+        measured = 0.0
+        for sid in sids:
+            m = self._measured_sid_bytes(sid)
+            if m is None:
+                return
+            measured += m
+        est_in = sum(
+            self._stages[self._producer_stage_of[sid]].write.est_bytes
+            for sid in sids if sid in self._producer_stage_of)
+        new_est = (write.est_bytes * measured / est_in) if est_in > 0 \
+            else measured
+        choice = pick_shuffle_transport(new_est, len(stage.tasks),
+                                        write.nparts)
+        cur = write.transport or self.cfg.fallback_backend
+        if choice == cur:
+            return
+        if (choice == "sqs" and self.cfg.visibility_timeout_s
+                >= self.cfg.drain_timeout_s):
+            return
+        write.transport = choice
+        sid_w = write.shuffle_id
+        self._sid_meta[sid_w] = (write.nparts, choice)
+        for ci in self._sid_consumers.get(sid_w, ()):
+            for t in self._stages[ci].tasks:
+                tmap = (t.input.transports
+                        if isinstance(t.input, ShuffleRead) else None)
+                if tmap and sid_w in tmap:
+                    tmap[sid_w] = choice
+        self.adaptive_stats["transport_rechoices"] += 1
+        if self.verbose:
+            print(f"[flint] adaptive: shuffle {sid_w} transport "
+                  f"{cur} -> {choice} ({new_est:.0f}B measured est)")
+
+    # ----------------------------------------------------- barrier mode
+    def _run_barrier(self, stages: list[StagePlan]):
+        result = None
+        adaptive = self._adaptive_on()
+        # large-side producer stage -> its join gate (broadcast candidate)
+        gate_by_large = {large: (small, large, jsi) for small, large, jsi
+                         in (self._find_join_gates(stages)
+                             if adaptive else ())}
+        try:
+            for si, stage in enumerate(stages):
+                if si in self._absorbed.values():
+                    # join stage absorbed into its large-side producer by
+                    # an earlier broadcast conversion: nothing left to run
+                    self._stage_done[si] = True
+                    continue
+                if adaptive:
+                    # the stage boundary: every input of stage ``si`` is
+                    # complete and measured — re-optimize what remains
+                    gate = gate_by_large.get(si)
+                    if gate is not None:
+                        self._try_broadcast_convert(*gate)
+                    self._coalesce_stage(stage)
+                    self._rechoose_transport(stage)
+                if stage.write is not None:
+                    self._open_shuffle(stage.write)
+                result = self._run_stage(stage)
+                self._stage_done[si] = True
+                # channels whose last consumer just finished are dead
+                self._consumer_stage_done(si, stage)
+        except BaseException:
+            # same teardown as the pipelined path: a consumer blocked on a
+            # queue that will never fill must not linger in the thread
+            # pool until drain_timeout_s
+            self.sqs.close()
+            raise
+        return result
+
+    # ------------------------------------------------------------------
+    def _payload_for(self, task: TaskDef, stage: StagePlan, attempt: int,
+                     extra: dict | None = None) -> dict:
+        extra = dict(extra or {})
+        fault = self.faults.task_fault(task.stage_id, task.index)
+        if fault.get("fail_attempts", 0) > attempt:
+            extra["inject_failure"] = True
+        if fault.get("straggle_s") and attempt == 0 \
+                and not extra.get("_speculative"):
+            extra["straggle_s"] = fault["straggle_s"]
+        if fault.get("fail_after_records") and attempt == 0:
+            extra["fail_after_records"] = fault["fail_after_records"]
+        if fault.get("fail_on_link") and attempt == 0 \
+                and extra.get("_link") == fault["fail_on_link"]:
+            # kill a specific link of a CHAINED task — exercises the
+            # resume-from-cursor retry path deterministically
+            extra["inject_failure"] = True
+        extra.pop("_link", None)
+        extra.pop("_speculative", None)
+        if isinstance(task.input, ShuffleRead):
+            # EOS termination quorum, known at plan time — both modes
+            extra["n_producers"] = {
+                str(sid): stage.producer_counts[sid]
+                for sid, _ in task.input.parts}
+        if stage.action == "save" or stage.save_prefix:
+            extra["save_prefix"] = stage.save_prefix
+        return serialize_task(task, attempt, extra)
+
+    # -------------------------------------------- failure triage + recovery
+    def _task_failure(self, stage, idx, n_attempts, resp, *,
+                      retryable=False) -> StageFailure:
+        return StageFailure(
+            f"task {stage.id}/{idx} failed after {n_attempts} attempt(s): "
+            f"{resp.get('error')}",
+            error_type=resp.get("error_type", ""),
+            stage_id=stage.id, task_index=idx, attempts=n_attempts,
+            retryable=retryable, detail=resp.get("detail"))
+
+    def _on_task_error(self, stage, task, resp, attempts_map):
+        """Shared failure triage for both scheduler modes and the replay
+        path. Returns after deciding the task should run again (charging a
+        retry attempt unless the failure was a recovered lost input —
+        those are the INPUT's fault, bounded by the stage-resubmission
+        budget instead); raises a structured StageFailure when the cause
+        is terminal at this layer."""
+        err = resp.get("error_type", "")
+        idx = task.index
+        if err == "MemoryCapExceeded":
+            # retryable=True: the context's answer is elasticity — raise
+            # the partition count and re-plan (message kept verbatim)
+            raise StageFailure(resp.get("error", ""),
+                               error_type="MemoryCapExceeded",
+                               stage_id=stage.id, task_index=idx,
+                               attempts=attempts_map[idx] + 1,
+                               retryable=True)
+        if err == "RetryBudgetExhausted":
+            # the job-wide budget is gone; any further attempt would just
+            # trip it again on its first service call
+            raise self._task_failure(stage, idx, attempts_map[idx] + 1, resp)
+        if err == "LostCacheInput":
+            # durable cache data is gone — only the context can replan the
+            # cached lineage and re-materialize (detail carries the token)
+            raise self._task_failure(stage, idx, attempts_map[idx] + 1,
+                                     resp, retryable=True)
+        if err == "LostBroadcastInput":
+            # an adaptive broadcast build side vanished: replay the small
+            # side's lineage and re-publish identical bytes, then rerun
+            # the probe task without charging it — the loss was the
+            # input's fault, bounded by the stage-resubmission budget
+            self.recovery_stats["lost_inputs"] += 1
+            prefix = (resp.get("detail") or {}).get("broadcast_prefix", "")
+            if self._rebuild_broadcast(prefix):
+                return
+            raise self._task_failure(stage, idx, attempts_map[idx] + 1,
+                                     resp)
+        if self._is_lost_input(task, err):
+            self.recovery_stats["lost_inputs"] += 1
+            if self._recover_lost_input(task, resp.get("detail")):
+                return  # input re-created — rerun without charging the task
+            raise self._task_failure(
+                stage, idx, attempts_map[idx] + 1,
+                dict(resp, error=f"{resp.get('error')} [stage-resubmission "
+                     f"budget exhausted: max_stage_retries="
+                     f"{self.cfg.max_stage_retries}]"))
+        attempts_map[idx] += 1
+        if attempts_map[idx] > self.cfg.max_task_retries:
+            raise self._task_failure(stage, idx, attempts_map[idx], resp)
+
+    def _is_lost_input(self, task: TaskDef, err_type: str) -> bool:
+        """LostShuffleInput is conclusive on its own — the drain proved the
+        producer quorum complete with advertised data absent. A bare drain
+        TimeoutError only means lost input once every producing stage
+        finished; before that it is an ordinary slow/failed producer and
+        task retry is the right tool."""
+        if not isinstance(task.input, ShuffleRead):
+            return False
+        if err_type == "LostShuffleInput":
+            return True
+        if err_type != "TimeoutError":
+            return False
+        return all(self._stage_done[self._producer_stage_of[sid]]
+                   for sid, _ in task.input.parts
+                   if sid in self._producer_stage_of)
+
+    def _next_dispatch_backoff(self) -> float:
+        """Decorrelated-jitter pause before re-dispatching a 429-throttled
+        invocation; grows while throttles keep coming, resets to idle on
+        the next successful completion."""
+        base = self.cfg.dispatch_backoff_base_s
+        prev = self._dispatch_sleep or base
+        self._dispatch_sleep = min(self.cfg.dispatch_backoff_cap_s,
+                                   self._backoff_rng.uniform(base, prev * 3))
+        return self._dispatch_sleep
+
+    def _recover_lost_input(self, task: TaskDef, detail=None) -> bool:
+        """Lineage-based recovery (docs/fault_tolerance.md): the consumer
+        proved its shuffle input permanently gone, so re-execute producing
+        tasks from lineage, exactly as the paper's driver would.
+
+        TARGETED path: when the drain names the producers whose advertised
+        output vanished (detail["srcs"], ``s{stage}t{index}``), only those
+        tasks are resubmitted — their re-emission is byte-identical
+        (stable partitioning, sorted re-emission, fixed flush boundaries)
+        and rewrites the content-addressed keys in place, so the retried
+        consumer's deferred GETs pick them up without reopening the
+        channel. This keeps recovery cost proportional to what was lost,
+        not to the stage width. A quorum-incomplete drain timeout with
+        every producing stage finished (a LOST EOS MANIFEST) is targeted
+        too: the drain reports which producers' manifests DID arrive
+        (detail["have_eos"]) and the absent ones are the targets. And when
+        a target sits MID-CHAIN — its own shuffle input was already
+        released, tombstoned, and reclaimed by its first successful run —
+        the replay expands deepest-first: the upstream producing stage is
+        resubmitted in full (every producer feeds every partition) behind
+        a channel ``reopen``, or the replayed task would abort on its own
+        stale tombstone.
+
+        FULL path (no producer names at all): reopen and replay the whole
+        upstream lineage deepest-first; consumers still mid-drain dedup
+        the byte-identical overlap instead of double-counting.
+
+        Both paths charge the per-stage resubmission budget; returns
+        False when max_stage_retries is exhausted."""
+        if any(sid not in self._producer_stage_of
+               for sid, _ in task.input.parts):
+            # a service-shared input produced by ANOTHER job's scheduler:
+            # no lineage here to replay it with. Fail structured — the
+            # service answers with one solo re-plan (sharing disabled)
+            return False
+        detail = detail or {}
+        targets: dict[int, set[int]] = {}
+        stage_by_id = {s.id: i for i, s in enumerate(self._stages)}
+        srcs = detail.get("srcs") or ()
+        if not srcs and "have_eos" in detail:
+            # every producing stage is done (the caller checked), yet the
+            # EOS quorum never completed: the missing manifests' writers
+            # are exactly the producers not named in have_eos
+            psi = self._producer_stage_of.get(detail.get("sid"))
+            if psi is not None:
+                have = set(detail["have_eos"])
+                pstage = self._stages[psi]
+                srcs = [s for s in (f"s{pstage.id}t{t.index}"
+                                    for t in pstage.tasks) if s not in have]
+        for src in srcs:
+            m = re.fullmatch(r"s(\d+)t(\d+)", src)
+            psi = stage_by_id.get(int(m.group(1))) if m else None
+            if psi is None:
+                targets.clear()  # unparseable producer: fall back to full
+                break
+            targets.setdefault(psi, set()).add(int(m.group(2)))
+        if targets:
+            replay_order: list[int] = []
+            only: dict[int, set[int] | None] = {}  # None = full stage
+            reopen_sids: list[int] = []
+            scanned: set[tuple[int, int]] = set()
+
+            def require(psi: int, indices: set[int] | None):
+                stage = self._stages[psi]
+                for t in stage.tasks:
+                    if indices is not None and t.index not in indices:
+                        continue
+                    if (psi, t.index) in scanned:
+                        continue
+                    scanned.add((psi, t.index))
+                    inp = t.input
+                    if not isinstance(inp, ShuffleRead):
+                        continue
+                    for k, (sid, _mode) in enumerate(inp.parts):
+                        up = self._producer_stage_of.get(sid)
+                        if up is None:
+                            continue
+                        g = inp.groups[k] if inp.groups else 0
+                        if not self._transport_of(sid).partition_drainable(
+                                sid, inp.partition, g):
+                            if sid not in reopen_sids:
+                                reopen_sids.append(sid)
+                            require(up, None)
+                if psi not in only:
+                    only[psi] = set() if indices is not None else None
+                    replay_order.append(psi)
+                if indices is None:
+                    only[psi] = None
+                elif only[psi] is not None:
+                    only[psi] |= indices
+            for psi, indices in sorted(targets.items()):
+                require(psi, indices)
+            # only the NAMED target stages are charged: an upstream stage
+            # replayed solely to re-produce a reclaimed input rides its
+            # target's charge (every recovery still charges >= 1 stage,
+            # so a black-hole loss loop stays bounded), or deep chains
+            # would bill the innermost stage for every downstream incident.
+            # The charge is keyed per (stage, task set): a permanently
+            # black-holed object re-targets the SAME tasks every time and
+            # exhausts at max_stage_retries, while independent losses on
+            # different producers of a wide stage don't share one counter
+            for psi, indices in targets.items():
+                key = (psi, tuple(sorted(indices)))
+                n = self._stage_retries.get(key, 0) + 1
+                if n > self.cfg.max_stage_retries:
+                    return False
+                self._stage_retries[key] = n
+            for sid in reopen_sids:
+                write = self._stages[self._producer_stage_of[sid]].write
+                self._transport_of(sid).reopen(
+                    sid, write.nparts, groups=write.consumer_groups)
+            for psi in replay_order:
+                self._replay_stage(psi, only=only[psi])
+            self.recovery_stats["stage_resubmits"] += len(replay_order)
+            return True
+        order: list[int] = []
+        seen: set[int] = set()
+
+        def visit(sid: int):
+            psi = self._producer_stage_of.get(sid)
+            if psi is None or psi in seen:
+                return
+            seen.add(psi)
+            for up in sorted(_consumed_shuffles(self._stages[psi])):
+                visit(up)
+            order.append(psi)
+
+        for sid, _ in task.input.parts:
+            visit(sid)
+        if not order:
+            return False
+        for psi in order:
+            n = self._stage_retries.get(psi, 0) + 1
+            if n > self.cfg.max_stage_retries:
+                return False
+            self._stage_retries[psi] = n
+        for psi in order:
+            write = self._stages[psi].write
+            self._transport_of(write.shuffle_id).reopen(
+                write.shuffle_id, write.nparts,
+                groups=write.consumer_groups)
+            self._replay_stage(psi)
+        self.recovery_stats["stage_resubmits"] += len(order)
+        return True
+
+    def _replay_stage(self, psi: int, only: set[int] | None = None):
+        """Synchronously re-execute one producing stage (or, with
+        ``only``, just the named task indices) for lineage recovery — on
+        a PRIVATE pool, because the main pool's threads may all be
+        consumers blocked in drains waiting for exactly this data.
+        Replay invocations carry a large attempt number so targeted
+        first-attempt faults don't re-fire, while the tasks' shuffle
+        identity (src = stage/index) is unchanged. Completed partitions
+        are NOT released here: the retried consumer re-drains the
+        channels, and the job-end GC sweeps whatever remains."""
+        stage = self._stages[psi]
+        cfg = self.cfg
+        tasks = [t for t in stage.tasks
+                 if only is None or t.index in only]
+        by_idx = {t.index: t for t in tasks}
+        attempts = {t.index: 0 for t in tasks}
+        cursors: dict[int, dict] = {}
+        delayed: list = []  # (due, task, extra) — 429 backoff
+        inflight: dict = {}
+        pool = cf.ThreadPoolExecutor(
+            max_workers=max(1, cfg.concurrency // 2))
+        try:
+            def launch(task, extra=None):
+                payload = self._payload_for(
+                    task, stage, _REPLAY_ATTEMPT + attempts[task.index],
+                    dict(extra or {}))
+                inflight[pool.submit(self.lam.invoke, payload)] = task.index
+
+            for t in tasks:
+                launch(t)
+            while inflight or delayed:
+                now = time.monotonic()
+                due = [e for e in delayed if e[0] <= now]
+                if due:
+                    delayed = [e for e in delayed if e[0] > now]
+                    for _, t, extra in due:
+                        launch(t, extra)
+                if not inflight:
+                    time.sleep(max(0.001, min(
+                        0.25, min(e[0] for e in delayed) - now)))
+                    continue
+                done, _ = cf.wait(list(inflight), timeout=0.25,
+                                  return_when=cf.FIRST_COMPLETED)
+                for fut in done:
+                    idx = inflight.pop(fut)
+                    resp = fut.result()
+                    if "spilled" in resp:
+                        resp = pickle.loads(
+                            self.lam.rstore.get(resp["spilled"]))
+                    if resp.get("status") == "throttled":
+                        self.recovery_stats["throttled"] += 1
+                        delayed.append(
+                            (time.monotonic() + self._next_dispatch_backoff(),
+                             by_idx[idx], cursors.get(idx)))
+                        continue
+                    if resp.get("status") != "ok":
+                        # re-entrant on purpose: a lost input DURING replay
+                        # cascades one level deeper, bounded by the shared
+                        # per-stage resubmission counters
+                        self._on_task_error(stage, by_idx[idx], resp,
+                                            attempts)
+                        launch(by_idx[idx], cursors.get(idx))
+                        continue
+                    if "continuation" in resp:
+                        cursors[idx] = resp["continuation"]
+                        launch(by_idx[idx], resp["continuation"])
+                        continue
+                    self.recovery_stats["replayed_tasks"] += 1
+        finally:
+            pool.shutdown(wait=False)
+
+    def _invoke_slotted(self, payload):
+        """Barrier-mode fair-share gate, applied INSIDE the worker thread
+        (safe to block there: a barrier stage's inputs are complete, so a
+        task holding a slot never waits on another that wants one).
+        Pipelined mode gates at the launch frontier instead — its
+        consumers block mid-drain on producers that may be slot-starved,
+        so blocking a worker thread on a slot could deadlock."""
+        self._slots.acquire()
+        try:
+            return self.lam.invoke(payload)
+        finally:
+            self._slots.release()
+
+    def _run_stage(self, stage: StagePlan) -> Any:
+        t0 = time.monotonic()
+        n = len(stage.tasks)
+        results: dict[int, Any] = {}
+        partials: dict[int, list] = {}
+        attempts: dict[int, int] = {i: 0 for i in range(n)}
+        durations: list[float] = []
+        speculated: set[int] = set()
+        inflight: dict[cf.Future, tuple[int, bool, float]] = {}
+        dup_dropped = 0
+        chained = 0
+        # last continuation cursor per chained task: a retry resumes from
+        # here instead of replaying from scratch — the already-emitted
+        # links' (src, seq) messages stay untouched and only the failed
+        # link replays (its flush boundaries are count-based, so the
+        # replay is byte-identical)
+        cursors: dict[int, dict] = {}
+        links: dict[int, int] = {}
+        delayed: list = []  # (due, task, extra) — 429 dispatch backoff
+
+        def launch(task: TaskDef, extra=None, speculative=False):
+            payload = self._payload_for(
+                task, stage, attempts[task.index],
+                dict(extra or {}, _speculative=speculative))
+            fut = self.pool.submit(self._invoke_slotted, payload)
+            inflight[fut] = (task.index, speculative, time.monotonic())
+
+        for task in stage.tasks:
+            launch(task)
+
+        def spec_armed() -> bool:
+            # consumers included: visibility-timeout receives make two
+            # drains of one queue race on acks, not split messages. Only
+            # FIRST attempts are speculated — a retry's latency baseline
+            # is meaningless (a consumer retry is waiting out its dead
+            # predecessor's visibility deadline), and a twin racing it
+            # would hold claims the retry needs. Tasks that already
+            # CHAINED are excluded too: a twin restarting from scratch
+            # could cut its links at different wall-clock positions and
+            # emit conflicting framings under the same sequence ids
+            return (len(durations) >= self.cfg.speculation_min_done
+                    and len(inflight) < self.cfg.concurrency
+                    and any(not spec and idx not in speculated
+                            and idx not in results and attempts[idx] == 0
+                            and idx not in cursors
+                            for idx, spec, _ in inflight.values()))
+
+        # straggler thresholds compare scheduler-observed latency, so allow
+        # for a cold start before calling anything a straggler
+        start_allowance = self.cfg.cold_start_s * self.cfg.start_latency_scale
+
+        while inflight or delayed:
+            if self._cost_guard is not None:
+                self._cost_guard()
+            now = time.monotonic()
+            due = [e for e in delayed if e[0] <= now]
+            if due:
+                delayed = [e for e in delayed if e[0] > now]
+                for _, dtask, dextra in due:
+                    launch(dtask, extra=dextra)
+            if not inflight:
+                # every runnable task is backing off a 429
+                time.sleep(max(0.001, min(
+                    0.25, min(e[0] for e in delayed) - time.monotonic())))
+                continue
+            # event-driven: block on completions; wake periodically only
+            # while a straggler check or a delayed re-dispatch could fire
+            done, _ = cf.wait(list(inflight),
+                              timeout=0.05 if (spec_armed() or delayed)
+                              else 5.0,
+                              return_when=cf.FIRST_COMPLETED)
+            now = time.monotonic()
+            # straggler speculation
+            if (len(durations) >= self.cfg.speculation_min_done
+                    and len(inflight) < self.cfg.concurrency):
+                med = sorted(durations)[len(durations) // 2]
+                for fut, (idx, spec, started) in list(inflight.items()):
+                    if (not spec and idx not in speculated
+                            and idx not in results and attempts[idx] == 0
+                            and idx not in cursors
+                            and now - started > self.cfg.speculation_factor
+                            * max(med, 0.05) + start_allowance):
+                        speculated.add(idx)
+                        launch(stage.tasks[idx], speculative=True)
+            for fut in done:
+                idx, speculative, started = inflight.pop(fut)
+                resp = fut.result()
+                if "spilled" in resp:
+                    resp = pickle.loads(self.lam.rstore.get(resp["spilled"]))
+                if idx in results:
+                    dup_dropped += 1  # speculative duplicate lost the race
+                    continue
+                if resp.get("status") == "throttled":
+                    # 429: never ran, never billed — re-dispatch after a
+                    # decorrelated-jitter pause, no retry attempt charged
+                    self.recovery_stats["throttled"] += 1
+                    delayed.append(
+                        (time.monotonic() + self._next_dispatch_backoff(),
+                         stage.tasks[idx], cursors.get(idx)))
+                    continue
+                if resp.get("status") != "ok":
+                    # a dead consumer's unacked messages redeliver after
+                    # the visibility timeout, so its retry sees them all;
+                    # lost durable input triggers lineage resubmission
+                    # instead (triage raises when terminal)
+                    self._on_task_error(stage, stage.tasks[idx], resp,
+                                        attempts)
+                    launch(stage.tasks[idx], extra=cursors.get(idx))
+                    continue
+                self._dispatch_sleep = 0.0  # concurrency is healthy again
+                self._note_shuffle_stats(stage, resp)
+                if "continuation" in resp:
+                    # executor chaining: merge partial output, re-invoke warm
+                    chained += 1
+                    self._merge_partial(resp, idx, partials)
+                    cursors[idx] = resp["continuation"]
+                    links[idx] = links.get(idx, 1) + 1
+                    launch(stage.tasks[idx],
+                           extra=dict(resp["continuation"],
+                                      _link=links[idx]))
+                    continue
+                durations.append(now - started)
+                self._merge_partial(resp, idx, partials)
+                results[idx] = True
+                self._release_task_partitions(stage.tasks[idx])
+
+        self.stage_stats.append({
+            "stage": stage.id, "tasks": n,
+            "wall_s": round(time.monotonic() - t0, 4),
+            "attempts": sum(attempts.values()) + n,
+            "chained": chained,
+            "speculated": len(speculated),
+            "spec_dropped": dup_dropped,
+        })
+        if self.verbose:
+            print(f"[flint] stage {stage.id}: {self.stage_stats[-1]}")
+
+        return self._stage_result(stage, partials)
+
+    # --------------------------------------------------- pipelined mode
+    def _run_pipelined(self, stages: list[StagePlan]):
+        cfg = self.cfg
+        # Adaptive join gating: for each eligible two-sided join, HOLD the
+        # larger-estimated side's producer stage and the join stage (and
+        # the join output's direct consumers, whose EOS quorum payloads
+        # must see the post-decision producer count) until the small side
+        # completes and its measured size decides shuffle vs broadcast.
+        # The large side's shuffle channels are not opened until then —
+        # on conversion they are never opened at all. Everything else
+        # pipelines exactly as before; with adaptive off the gate set is
+        # empty and this is the old code path.
+        gates = (self._find_join_gates(stages)
+                 if self._adaptive_on() else [])
+        gate_by_small: dict[int, list] = {}
+        # stage index -> number of unresolved gates holding it back (a
+        # stage consuming TWO gated joins' outputs waits for both)
+        gate_holds: dict[int, int] = {}
+        deferred_opens: set[int] = set()
+        for small, large, jsi in gates:
+            held = {large, jsi}
+            deferred_opens.add(large)
+            jw = stages[jsi].write
+            if jw is not None:
+                held |= self._sid_consumers.get(jw.shuffle_id, set())
+            gate_by_small.setdefault(small, []).append(
+                (small, large, jsi, held))
+            for h in held:
+                gate_holds[h] = gate_holds.get(h, 0) + 1
+        gated = set(gate_holds)
+        for si, stage in enumerate(stages):
+            if stage.write is not None and si not in deferred_opens:
+                self._open_shuffle(stage.write)
+
+        deps = [sorted(self._producer_stage_of[sid]
+                       for sid in _consumed_shuffles(stage)
+                       if sid in self._producer_stage_of)
+                for stage in stages]
+
+        n_stages = len(stages)
+        results: list[dict] = [{} for _ in stages]
+        partials: list[dict] = [{} for _ in stages]
+        attempts = [{i: 0 for i in range(len(s.tasks))} for s in stages]
+        durations: list[list[float]] = [[] for _ in stages]
+        speculated: list[set] = [set() for _ in stages]
+        chained = [0] * n_stages
+        dup_dropped = [0] * n_stages
+        # last continuation cursor per chained task (see _run_stage)
+        cursors: list[dict] = [{} for _ in stages]
+        links: list[dict] = [{} for _ in stages]
+        stage_done = self._stage_done  # shared: failure triage reads it
+        stage_t0: list[float | None] = [None] * n_stages
+        stats_rows: list[dict | None] = [None] * n_stages
+        final_result: list[Any] = [None]
+
+        # launch frontier: a min-heap keyed (stage, arrival) so producer
+        # work — including late retries and chained continuations — always
+        # outranks consumer launches for a freed window slot
+        ticket = itertools.count()
+        pending: list = []
+        delayed: list = []  # (due, si, task, extra) — 429 dispatch backoff
+        inflight: dict[cf.Future, tuple[int, int, bool, float]] = {}
+
+        def push(si, task, extra=None, speculative=False):
+            heapq.heappush(pending,
+                           (si, next(ticket), task, extra, speculative))
+
+        for si, stage in enumerate(stages):
+            if si in gated:
+                continue  # released (and pushed) at gate resolution
+            for task in stage.tasks:
+                push(si, task)
+
+        # fair-share slot accounting (service mode; _NullSlots solo). One
+        # slot is held per inflight invocation. Retries and chained
+        # continuations CARRY their predecessor's slot instead of
+        # re-queueing for one — a continuation re-entering the general
+        # scramble could starve behind other tenants' consumers that are
+        # blocked mid-drain on exactly this producer's output. Carried
+        # slots not consumed by launch_ready are returned at the end of
+        # the event-loop iteration (invariant: held == inflight + carry).
+        slots = self._slots
+        carry = [0]
+
+        def launch_ready():
+            while pending and len(inflight) < cfg.concurrency:
+                if carry[0] > 0:
+                    carry[0] -= 1
+                elif not slots.try_acquire():
+                    break
+                si, _, task, extra, speculative = heapq.heappop(pending)
+                if task.index in results[si]:
+                    carry[0] += 1
+                    continue  # stale: original already won
+                if stage_t0[si] is None:
+                    stage_t0[si] = time.monotonic()
+                payload = self._payload_for(
+                    task, stages[si], attempts[si][task.index],
+                    dict(extra or {}, _speculative=speculative))
+                fut = self.pool.submit(self.lam.invoke, payload)
+                inflight[fut] = (si, task.index, speculative,
+                                 time.monotonic())
+            # advertise EFFECTIVE demand — what could launch right now.
+            # A job whose local pool is saturated must not hold the
+            # fair-share pool idle against other tenants
+            slots.set_demand(min(len(pending),
+                                 max(0, cfg.concurrency - len(inflight))))
+
+        def deps_done(si) -> bool:
+            return all(stage_done[d] for d in deps[si])
+
+        start_allowance = cfg.cold_start_s * cfg.start_latency_scale
+
+        def spec_armed() -> bool:
+            # consumers included (once their producers are done):
+            # visibility-timeout receives make two drains of one queue
+            # race on acks, not split messages. Only FIRST attempts are
+            # speculated — a retry's latency baseline is meaningless (a
+            # consumer retry is waiting out its dead predecessor's
+            # visibility deadline), and a twin racing it would hold
+            # claims the retry needs
+            if len(inflight) >= cfg.concurrency:
+                return False
+            for fsi, idx, spec, _ in inflight.values():
+                if (not spec and deps_done(fsi)
+                        and len(durations[fsi]) >= cfg.speculation_min_done
+                        and idx not in speculated[fsi]
+                        and idx not in results[fsi]
+                        and attempts[fsi][idx] == 0
+                        and idx not in cursors[fsi]):
+                    return True
+            return False
+
+        def release_gate(small_si, large_si, jsi, held):
+            """The small join side completed: decide broadcast-vs-shuffle
+            from its measured bytes, open the large side's channels if the
+            shuffle survives, and un-hold every stage this gate held
+            (stages held by several gates wait for all of them)."""
+            converted = self._try_broadcast_convert(small_si, large_si,
+                                                    jsi)
+            if not converted:
+                large = stages[large_si]
+                if deps_done(large_si):
+                    # every input measured: revisit the cost-model
+                    # transport choice before the channels open
+                    self._rechoose_transport(large)
+                self._open_shuffle(large.write)
+            for gsi in sorted(held):
+                gate_holds[gsi] -= 1
+                if gate_holds[gsi] == 0:
+                    gated.discard(gsi)
+                    for task in stages[gsi].tasks:
+                        push(gsi, task)
+
+        def finish_stage(si, stage):
+            stage_done[si] = True
+            stats_rows[si] = {
+                "stage": stage.id, "tasks": len(stage.tasks),
+                "wall_s": round(time.monotonic()
+                                - (stage_t0[si] or time.monotonic()), 4),
+                "attempts": sum(attempts[si].values()) + len(stage.tasks),
+                "chained": chained[si],
+                "speculated": len(speculated[si]),
+                "spec_dropped": dup_dropped[si],
+            }
+            if self.verbose:
+                print(f"[flint] stage {stage.id}: {stats_rows[si]}")
+            self._consumer_stage_done(si, stage)
+            if stage.action is not None or stage.write is None:
+                final_result[0] = self._stage_result(stage, partials[si])
+            for gate in gate_by_small.pop(si, ()):
+                release_gate(*gate)
+            jsi = self._absorbed.get(si)
+            if jsi is not None:
+                # the absorbed join stage finished WITH its large-side
+                # producer — its work ran fused into that stage's tasks
+                stage_done[jsi] = True
+                stats_rows[jsi] = {
+                    "stage": stages[jsi].id, "tasks": 0, "wall_s": 0.0,
+                    "attempts": 0, "chained": 0, "speculated": 0,
+                    "spec_dropped": 0, "absorbed": True,
+                }
+
+        launch_ready()
+        try:
+            while inflight or pending or delayed:
+                if self._cost_guard is not None:
+                    self._cost_guard()
+                now = time.monotonic()
+                due = [e for e in delayed if e[0] <= now]
+                if due:
+                    delayed = [e for e in delayed if e[0] > now]
+                    for _, dsi, dtask, dextra in due:
+                        push(dsi, dtask, extra=dextra)
+                launch_ready()
+                if not inflight:
+                    if delayed:
+                        # every runnable task is backing off a 429
+                        time.sleep(max(0.001, min(
+                            0.25,
+                            min(e[0] for e in delayed) - time.monotonic())))
+                    elif pending:
+                        # slot-starved: every runnable task is waiting on
+                        # the fair-share pool — block until a slot frees
+                        slots.wait(0.05)
+                    continue
+                done, _ = cf.wait(list(inflight),
+                                  timeout=0.05 if (spec_armed() or delayed
+                                                   or slots.contended())
+                                  else 5.0,
+                                  return_when=cf.FIRST_COMPLETED)
+                now = time.monotonic()
+                # straggler speculation — only for stages whose producers
+                # are all done (a blocked consumer is not a straggler)
+                if len(inflight) < cfg.concurrency or pending:
+                    for fut, (fsi, idx, spec, started) in list(
+                            inflight.items()):
+                        if (spec or not deps_done(fsi)
+                                or idx in speculated[fsi]
+                                or idx in results[fsi]
+                                or attempts[fsi][idx] > 0
+                                or idx in cursors[fsi]):
+                            continue
+                        durs = durations[fsi]
+                        if len(durs) < cfg.speculation_min_done:
+                            continue
+                        med = sorted(durs)[len(durs) // 2]
+                        if now - started > (cfg.speculation_factor
+                                            * max(med, 0.05)
+                                            + start_allowance):
+                            speculated[fsi].add(idx)
+                            push(fsi, stages[fsi].tasks[idx],
+                                 speculative=True)
+                for fut in done:
+                    si, idx, speculative, started = inflight.pop(fut)
+                    resp = fut.result()
+                    if "spilled" in resp:
+                        resp = pickle.loads(
+                            self.lam.rstore.get(resp["spilled"]))
+                    if idx in results[si]:
+                        dup_dropped[si] += 1  # speculative dup lost the race
+                        slots.release()
+                        continue
+                    if resp.get("status") == "throttled":
+                        # 429: never ran, never billed — re-dispatch after
+                        # a decorrelated-jitter pause, no attempt charged.
+                        # The slot goes back to the pool for the duration
+                        # of the pause: a throttled tenant holding slots
+                        # it cannot use would starve the others
+                        slots.release()
+                        self.recovery_stats["throttled"] += 1
+                        delayed.append(
+                            (time.monotonic()
+                             + self._next_dispatch_backoff(),
+                             si, stages[si].tasks[idx],
+                             cursors[si].get(idx)))
+                        continue
+                    if resp.get("status") != "ok":
+                        # a dead consumer's unacked messages redeliver
+                        # after the visibility timeout — retry like any
+                        # task; lost durable input triggers lineage
+                        # resubmission instead (triage raises if terminal).
+                        # The retry carries the failed attempt's slot
+                        carry[0] += 1
+                        self._on_task_error(stages[si], stages[si].tasks[idx],
+                                            resp, attempts[si])
+                        push(si, stages[si].tasks[idx],
+                             extra=cursors[si].get(idx))
+                        continue
+                    self._dispatch_sleep = 0.0  # concurrency healthy again
+                    self._note_shuffle_stats(stages[si], resp)
+                    if "continuation" in resp:
+                        # chaining: the producer has NOT emitted EOS yet —
+                        # the re-invoked link (or its last successor) will.
+                        # The next link carries this one's slot
+                        carry[0] += 1
+                        chained[si] += 1
+                        self._merge_partial(resp, idx, partials[si])
+                        cursors[si][idx] = resp["continuation"]
+                        links[si][idx] = links[si].get(idx, 1) + 1
+                        push(si, stages[si].tasks[idx],
+                             extra=dict(resp["continuation"],
+                                        _link=links[si][idx]))
+                        continue
+                    slots.release()
+                    durations[si].append(now - started)
+                    self._merge_partial(resp, idx, partials[si])
+                    results[si][idx] = True
+                    self._release_task_partitions(stages[si].tasks[idx])
+                    if len(results[si]) == len(stages[si].tasks):
+                        finish_stage(si, stages[si])
+                launch_ready()
+                # carried slots launch_ready could not use this iteration
+                # (frontier empty / local pool full) go back to the pool
+                while carry[0] > 0:
+                    carry[0] -= 1
+                    slots.release()
+        except BaseException:
+            # unblock any consumer still waiting on queues we now know
+            # will never complete (fatal failure / elastic re-plan)
+            self.sqs.close()
+            raise
+
+        # completion order is event order; report in plan order
+        self.stage_stats.extend(r for r in stats_rows if r is not None)
+        return final_result[0]
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _stage_result(stage: StagePlan, partials: dict) -> Any:
+        n = len(stage.tasks)
+        if stage.action in ("collect", "sum"):
+            out = []
+            for i in range(n):
+                out.extend(partials.get(i, []))
+                if stage.limit is not None and len(out) >= stage.limit:
+                    # take(n): the merge short-circuits — later
+                    # partitions' results are never consumed
+                    return out[:stage.limit]
+            return sum(out) if stage.action == "sum" else out
+        if stage.action == "save":
+            return [f"{stage.save_prefix}/part-{i:05d}" for i in range(n)]
+        return None
+
+    @staticmethod
+    def _merge_partial(resp, idx, partials):
+        if "result" in resp:
+            partials.setdefault(idx, []).extend(resp["result"])
+
+    def gc_job(self) -> dict[str, int]:
+        """Job-scoped garbage collection (idempotent): every transport
+        sweeps its channels (stray queues, the whole ``_exchange/`` tree)
+        and the transient object-store prefixes are deleted — content-
+        addressed spill keys were never reclaimed before this. Runs inside
+        ``shutdown``, i.e. on every query completion or failure; the
+        removal counts land in ``gc_report`` so benchmarks/tests can both
+        assert zero leaks and see that the GC actually had work to do."""
+        with self._lock:
+            if self._gc_done:
+                return self.gc_report
+            self._gc_done = True
+        report: dict[str, int] = {}
+        if self._binding is None:
+            for transport in self.transports.active():
+                for resource, n in transport.gc().items():
+                    report[resource] = report.get(resource, 0) + n
+            for prefix in GC_PREFIXES:
+                n = self.store.delete_prefix(prefix)
+                if n:
+                    report[prefix] = n
+        else:
+            # SERVICE mode: the store is shared with concurrently-running
+            # jobs, so the blanket sweeps above would destroy their live
+            # state. Sweep only what this job owns: its own (non-shared)
+            # shuffle ids per transport, and its job-scoped payload/result
+            # spill prefixes. ``_spill/`` keys are content-addressed and
+            # cross-job shareable — the service sweeps them at close
+            by_tr: dict[str, list[int]] = {}
+            for sid, psi in self._producer_stage_of.items():
+                if self._share is not None and self._share.manages(sid):
+                    continue  # the share registry owns its lifecycle
+                by_tr.setdefault(self._sid_meta[sid][1], []).append(sid)
+            for tname, sids in by_tr.items():
+                for resource, n in self.transports.get(
+                        tname).gc_sids(sids).items():
+                    report[resource] = report.get(resource, 0) + n
+            for prefix in (f"_payload/{self._scope}",
+                           f"_result/{self._scope}"):
+                n = self.store.delete_prefix(prefix)
+                if n:
+                    report[prefix] = n
+        # RDD.cache() materializations outlive the job on purpose (they
+        # feed later actions) — but only while their token is registered;
+        # stale content (cleared caches, elastic re-plans that changed the
+        # partition count) is swept here like any other transient key.
+        # Keys are listed BEFORE the live set is computed: a concurrent
+        # job registers a token at plan time, before its first cache
+        # write, so any key this listing sees belongs to a token that is
+        # either already registered (kept live) or genuinely dead
+        keys = self._retry_transient(self.store.list, "_cache/",
+                                     default=())
+        live = {f"_cache/{t}/{e['nparts']}/"
+                for t, e in self._cache_items()}
+        stale = [k for k in keys
+                 if not any(k.startswith(p) for p in live)]
+        for k in stale:
+            self.store.delete(k)
+        if stale:
+            report["_cache/"] = len(stale)
+        self.gc_report = report
+        return report
+
+    def _cache_items(self):
+        """Snapshot of the cache registry — the service's shared index
+        takes its lock for a consistent copy; a plain dict is iterated
+        over a list copy for the same reason."""
+        index = self._cache_index or {}
+        items = getattr(index, "items", None)
+        return list(items()) if items else []
+
+    def _retry_transient(self, fn, *args, default=None):
+        """GC-time store calls must survive a still-attached chaos
+        injector: solo mode detaches its own in ``shutdown`` before GC,
+        but the service-wide injector stays attached while other jobs
+        are mid-flight. Deletes bypass injection by design; only LIST
+        needs this shield. Gives up with ``default`` (a soft leak, swept
+        again at service close) rather than failing the job."""
+        for i in range(8):
+            try:
+                return fn(*args)
+            except TransientServiceError:
+                time.sleep(min(0.25, 0.002 * (2 ** i)))
+        return default
+
+    def shutdown(self):
+        # detach the chaos layer FIRST: job-end GC must not be failed by
+        # injected faults (a real driver retries cleanup indefinitely;
+        # modeling it fault-free keeps the zero-leak asserts meaningful),
+        # and the service sims may be shared with the next scheduler
+        if self.store.faults is self.faults:
+            self.store.faults = None
+        if self.sqs.faults is self.faults:
+            self.sqs.faults = None
+        self.lam.faults = None
+        self.sqs.close()  # release any consumer blocked on arrival
+        if self._share is not None:
+            # retire this job's published shuffles and mark its
+            # cross-job participations done; the registry destroys each
+            # shared shuffle once its owner retired AND every
+            # participating job is done with it
+            self._share.run_closed(self._job_id,
+                                   set(self._producer_stage_of))
+        self.gc_job()
+        self._slots.detach()
+        self.pool.shutdown(wait=False)

@@ -1,0 +1,384 @@
+"""Mini-cloudpickle: serialize task code (lambdas, closures, module refs)
+for shipping to executors (paper §III: "the serialized code to execute").
+
+Standard pickle refuses lambdas and local functions; Flint tasks are built
+from exactly those. We serialize the code object with ``marshal`` plus the
+pieces needed to rebuild the function: positional AND keyword-only
+defaults, closure cells, and the referenced globals (recursively for
+function-valued globals; by name for modules). Self- and mutually-
+recursive functions are handled with a memo: a function re-encountered
+while it is still being packed becomes a reference node, resolved back to
+the (partially built) function object at unpack time. Closure cells and
+globals holding CONTAINERS of functions (a list of compiled column
+expressions, a dict of named handlers) are walked recursively — the SQL
+layer's expression compiler closes over exactly those. Containers must be
+acyclic. Scope is intentionally bounded: anything else must already be
+picklable.
+"""
+
+from __future__ import annotations
+
+import importlib
+import marshal
+import pickle
+import struct
+import types
+from typing import Any
+
+_FN_TAG = "__flint_fn__"
+_MOD_TAG = "__flint_mod__"
+_REF_TAG = "__flint_fnref__"
+_SEQ_TAG = "__flint_seq__"  # list/tuple/dict carrying packed functions
+
+
+def _pack_cell(value, memo: dict):
+    return _pack(value, memo)
+
+
+def _pack(value: Any, memo: dict):
+    if isinstance(value, types.ModuleType):
+        return {_MOD_TAG: value.__name__}
+    if isinstance(value, types.FunctionType):
+        if id(value) in memo:
+            # cycle (fact -> fact, even -> odd -> even): emit a reference
+            # to the ancestor already being packed
+            return {_REF_TAG: memo[id(value)]}
+        return _pack_function(value, memo)
+    # EXACT list/tuple/dict only: a subclass (namedtuple, OrderedDict)
+    # rebuilt from items would lose its type on the executor — those keep
+    # the pre-existing pickle-by-value path. A container already on the
+    # walk stack is CYCLIC: functions inside one can't be packed, so it
+    # is left as-is for pickle (which handles cycles), same as before
+    # containers were walked at all.
+    if type(value) in (list, tuple):
+        stack = memo.setdefault("_container_stack", set())
+        if id(value) in stack:
+            return value
+        stack.add(id(value))
+        try:
+            packed = [_pack(v, memo) for v in value]
+        finally:
+            stack.discard(id(value))
+        if any(p is not v for p, v in zip(packed, value)):
+            kind = "list" if type(value) is list else "tuple"
+            return {_SEQ_TAG: kind, "items": packed}
+        return value
+    if type(value) is dict and _SEQ_TAG not in value:
+        stack = memo.setdefault("_container_stack", set())
+        if id(value) in stack:
+            return value
+        stack.add(id(value))
+        try:
+            vals = {k: _pack(v, memo) for k, v in value.items()}
+        finally:
+            stack.discard(id(value))
+        if any(vals[k] is not value[k] for k in value):
+            return {_SEQ_TAG: "dict", "items": list(vals.items())}
+        return value
+    return value
+
+
+def _referenced_names(code: types.CodeType) -> set:
+    """Global names referenced by ``code`` INCLUDING its nested code
+    objects — a comprehension or generator expression compiles to its own
+    code object, and a global called from inside one (``sum(f(x) for x in
+    v)``) appears only in the nested co_names."""
+    names = set(code.co_names)
+    for const in code.co_consts:
+        if isinstance(const, types.CodeType):
+            names |= _referenced_names(const)
+    return names
+
+
+def _pack_function(fn: types.FunctionType, memo: dict) -> dict:
+    uid = len(memo)
+    memo[id(fn)] = uid
+    code = fn.__code__
+    globs = {}
+    for name in sorted(_referenced_names(code)):
+        if name in fn.__globals__:
+            g = fn.__globals__[name]
+            if isinstance(g, (types.FunctionType, types.ModuleType)):
+                globs[name] = _pack(g, memo)
+            else:
+                packed = _pack(g, memo)  # containers of functions walk too
+                if packed is not g:
+                    globs[name] = packed
+                    continue
+                try:
+                    pickle.dumps(g)
+                    globs[name] = g
+                except Exception:
+                    pass  # unpicklable global never touched at runtime, or KeyError later
+    closure = None
+    if fn.__closure__:
+        closure = [_pack_cell(c.cell_contents, memo) for c in fn.__closure__]
+    return {
+        _FN_TAG: True,
+        "id": uid,
+        "code": marshal.dumps(code),
+        "name": fn.__name__,
+        "defaults": fn.__defaults__,
+        "kwdefaults": fn.__kwdefaults__,
+        "closure": closure,
+        "globals": globs,
+    }
+
+
+def _unpack(value: Any, memo: dict):
+    if isinstance(value, dict):
+        if value.get(_FN_TAG):
+            return _unpack_function(value, memo)
+        if _REF_TAG in value:
+            return memo[value[_REF_TAG]]  # ancestor registered before descent
+        if _MOD_TAG in value:
+            return importlib.import_module(value[_MOD_TAG])
+        if _SEQ_TAG in value:
+            kind = value[_SEQ_TAG]
+            if kind == "dict":
+                return {k: _unpack(v, memo) for k, v in value["items"]}
+            items = [_unpack(v, memo) for v in value["items"]]
+            return items if kind == "list" else tuple(items)
+    return value
+
+
+def _unpack_function(packed: dict, memo: dict) -> types.FunctionType:
+    code = marshal.loads(packed["code"])
+    globs = {"__builtins__": __builtins__}
+    # the function object must exist BEFORE its globals/closure unpack, so
+    # reference nodes inside them can resolve to it; empty cells are
+    # filled afterwards (cell_contents is writable)
+    closure = None
+    if packed["closure"] is not None:
+        closure = tuple(types.CellType() for _ in packed["closure"])
+    fn = types.FunctionType(code, globs, packed["name"], packed["defaults"],
+                            closure)
+    fn.__kwdefaults__ = packed.get("kwdefaults")
+    if packed.get("id") is not None:
+        memo[packed["id"]] = fn
+    for k, v in packed["globals"].items():
+        globs[k] = _unpack(v, memo)
+    if closure is not None:
+        for cell, v in zip(closure, packed["closure"]):
+            cell.cell_contents = _unpack(v, memo)
+    return fn
+
+
+# ------------------------------------------------------- columnar codecs
+#
+# Typed-array column codecs for the shuffle's columnar record batches
+# (core.shuffle.batch). A column is homogeneous when every element has the
+# same CONCRETE type (bool is not int, 1.0 is not 1 — the partitioner may
+# canonicalize, but the wire must round-trip values exactly). Schema
+# grammar:
+#
+#   "i"  int64        "f"  float64      "b"  bool
+#   "s"  utf-8 string (u16 length prefixes; "S" when any string is >64 KiB)
+#   "t(a,b,...)"  fixed-arity tuple of columns, recursively
+#   "l(a)"  ragged lists with a homogeneous element type (u32 per-value
+#           lengths + one flattened element column); "l()" when every list
+#           in the column is empty. groupByKey value-lists re-shuffled
+#           downstream ride this instead of falling back to pickle framing.
+#
+# Anything else (mixed types, ints beyond int64, None, ...) has no schema;
+# the batch falls back to length-prefixed pickle framing.
+
+_INT64_MIN, _INT64_MAX = -(2**63), 2**63 - 1
+_U32 = struct.Struct("<I")
+
+
+def column_schema(values: list) -> str | None:
+    """Schema of a homogeneous column, or None if the column is ragged."""
+    t = type(values[0])
+    if any(type(v) is not t for v in values):
+        return None
+    if t is int:
+        if all(_INT64_MIN <= v <= _INT64_MAX for v in values):
+            return "i"
+        return None
+    if t is float:
+        return "f"
+    if t is bool:
+        return "b"
+    if t is str:
+        return ("s" if all(len(v.encode("utf-8")) <= 0xFFFF for v in values)
+                else "S")
+    if t is tuple:
+        arity = len(values[0])
+        if arity == 0 or any(len(v) != arity for v in values):
+            return None
+        subs = []
+        for j in range(arity):
+            sub = column_schema([v[j] for v in values])
+            if sub is None:
+                return None
+            subs.append(sub)
+        return "t(%s)" % ",".join(subs)
+    if t is list:
+        flat = [x for v in values for x in v]
+        if not flat:
+            return "l()"  # all-empty: lengths alone reconstruct
+        sub = column_schema(flat)
+        if sub is None:
+            return None
+        return "l(%s)" % sub
+    return None
+
+
+def column_conforms(schema: str, values: list) -> bool:
+    """Cheap exact-type check of a column against a DECLARED schema.
+    struct.pack would silently coerce (int -> float64, bool -> int64), so
+    a declared-schema encode must verify concrete types first — the wire
+    round-trips values exactly or not at all (mismatch => the caller
+    falls back to sniffing)."""
+    if schema == "i":
+        return all(type(v) is int and _INT64_MIN <= v <= _INT64_MAX
+                   for v in values)
+    if schema == "f":
+        return all(type(v) is float for v in values)
+    if schema == "b":
+        return all(type(v) is bool for v in values)
+    if schema == "s":
+        return all(type(v) is str and len(v.encode("utf-8")) <= 0xFFFF
+                   for v in values)
+    if schema == "S":
+        return all(type(v) is str for v in values)
+    if schema.startswith("t("):
+        subs = _split_tuple_schema(schema)
+        if not all(type(v) is tuple and len(v) == len(subs)
+                   for v in values):
+            return False
+        return all(column_conforms(sub, [v[j] for v in values])
+                   for j, sub in enumerate(subs))
+    if schema.startswith("l("):
+        if not all(type(v) is list for v in values):
+            return False
+        sub = schema[2:-1]
+        flat = [x for v in values for x in v]
+        if not sub:
+            return not flat  # "l()" declares all-empty lists
+        return column_conforms(sub, flat)
+    return False
+
+
+def _split_tuple_schema(schema: str) -> list[str]:
+    """Top-level comma split of the "..." in "t(...)" (parens may nest)."""
+    inner = schema[2:-1]
+    subs, depth, start = [], 0, 0
+    for i, ch in enumerate(inner):
+        if ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            subs.append(inner[start:i])
+            start = i + 1
+    subs.append(inner[start:])
+    return subs
+
+
+def encode_column(schema: str, values: list) -> bytes:
+    n = len(values)
+    if schema == "i":
+        return struct.pack("<%dq" % n, *values)
+    if schema == "f":
+        return struct.pack("<%dd" % n, *values)
+    if schema == "b":
+        return bytes(values)
+    if schema == "s" or schema == "S":
+        blobs = [v.encode("utf-8") for v in values]
+        fmt = "<%dH" if schema == "s" else "<%dI"
+        return struct.pack(fmt % n, *map(len, blobs)) + b"".join(blobs)
+    if schema.startswith("t("):
+        out = []
+        for j, sub in enumerate(_split_tuple_schema(schema)):
+            blob = encode_column(sub, [v[j] for v in values])
+            out.append(_U32.pack(len(blob)))
+            out.append(blob)
+        return b"".join(out)
+    if schema.startswith("l("):
+        lengths = struct.pack("<%dI" % n, *map(len, values))
+        sub = schema[2:-1]
+        if not sub:  # "l()": every list is empty
+            return lengths
+        flat = [x for v in values for x in v]
+        return lengths + encode_column(sub, flat)
+    raise ValueError(f"unknown column schema {schema!r}")
+
+
+def decode_column(schema: str, blob: bytes, n: int) -> list:
+    if schema == "i":
+        return list(struct.unpack("<%dq" % n, blob))
+    if schema == "f":
+        return list(struct.unpack("<%dd" % n, blob))
+    if schema == "b":
+        return [bool(b) for b in blob]
+    if schema == "s" or schema == "S":
+        width = 2 if schema == "s" else 4
+        lens = struct.unpack_from(("<%dH" if schema == "s" else "<%dI") % n,
+                                  blob)
+        off = width * n
+        out = []
+        for ln in lens:
+            out.append(blob[off:off + ln].decode("utf-8"))
+            off += ln
+        return out
+    if schema.startswith("t("):
+        cols, off = [], 0
+        for sub in _split_tuple_schema(schema):
+            (ln,) = _U32.unpack_from(blob, off)
+            off += _U32.size
+            cols.append(decode_column(sub, blob[off:off + ln], n))
+            off += ln
+        return list(zip(*cols))
+    if schema.startswith("l("):
+        lengths = struct.unpack_from("<%dI" % n, blob)
+        sub = schema[2:-1]
+        flat = (decode_column(sub, blob[4 * n:], sum(lengths))
+                if sub else [])
+        out, off = [], 0
+        for ln in lengths:
+            out.append(flat[off:off + ln])
+            off += ln
+        return out
+    raise ValueError(f"unknown column schema {schema!r}")
+
+
+def column_value_sizes(schema: str, values: list) -> list[int]:
+    """Exact encoded bytes per value (framing prefixes excluded) — lets the
+    batch packer split a column set under a byte cap without encoding
+    speculative chunks."""
+    if schema == "i" or schema == "f":
+        return [8] * len(values)
+    if schema == "b":
+        return [1] * len(values)
+    if schema == "s" or schema == "S":
+        width = 2 if schema == "s" else 4
+        return [width + len(v.encode("utf-8")) for v in values]
+    if schema.startswith("t("):
+        sizes = [0] * len(values)
+        for j, sub in enumerate(_split_tuple_schema(schema)):
+            for i, s in enumerate(
+                    column_value_sizes(sub, [v[j] for v in values])):
+                sizes[i] += s
+        return sizes
+    if schema.startswith("l("):
+        sub = schema[2:-1]
+        if not sub:
+            return [4] * len(values)
+        flat_sizes = iter(column_value_sizes(
+            sub, [x for v in values for x in v]))
+        return [4 + sum(next(flat_sizes) for _ in v) for v in values]
+    raise ValueError(f"unknown column schema {schema!r}")
+
+
+def dumps_fn(fn) -> bytes:
+    """Serialize a callable (plain function, lambda, or closure)."""
+    if not isinstance(fn, types.FunctionType):
+        return pickle.dumps(fn)  # builtins / partials / callables
+    return pickle.dumps(_pack_function(fn, {}))
+
+
+def loads_fn(data: bytes):
+    obj = pickle.loads(data)
+    return _unpack(obj, {})

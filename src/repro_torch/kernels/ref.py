@@ -32,3 +32,18 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
     return out.reshape(b, sq, h, d)
+
+
+def bucket_reduce_ref(values, bucket_ids, n_buckets: int):
+    """values: (N, D), bucket_ids: (N,) ints. Returns (n_buckets, D)
+    per-bucket sums — reduceByKey after the hash partitioner, the paper's
+    shuffle+aggregate collapsed into one op. Ids outside [0, n_buckets)
+    (padding -1) add nothing, as ``jax.nn.one_hot`` gives them a zero row.
+    Accumulates in f32 and casts back to values' dtype; int64 values
+    accumulate in int64 (the exact variant ``grouped_reduce`` uses)."""
+    ids = bucket_ids.long()
+    keep = (ids >= 0) & (ids < n_buckets)
+    acc = torch.int64 if values.dtype == torch.int64 else torch.float32
+    out = torch.zeros((n_buckets, values.shape[1]), dtype=acc, device=values.device)
+    out.index_add_(0, ids[keep], values[keep].to(acc))
+    return out.to(values.dtype)

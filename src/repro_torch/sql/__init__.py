@@ -1,0 +1,33 @@
+"""Structured DataFrame surface over the Flint RDD engine.
+
+Modern "PySpark exactly as before" means DataFrames, not raw RDDs: a
+schema-carrying API whose queries become a LOGICAL PLAN, get rewritten by
+a rule-based optimizer (projection pruning into the scan, predicate and
+limit pushdown, map-side-combine selection, cost-model SQS-vs-S3
+transport choice per shuffle), and lower onto the existing RDD lineage —
+scheduler, EOS shuffle protocol, transports, CSE and cache() all apply
+unchanged. See docs/dataframe.md.
+
+    from repro_torch.core import FlintContext
+    from repro_torch.sql import Schema, col, lit, sum_, count_
+
+    ctx = FlintContext()
+    df = ctx.read_csv("taxi.csv", Schema([("pickup", "str"), ...]), 8)
+    (df.where(col("payment_type") == lit("credit"))
+       .withColumn("hour", col("pickup").substr(12, 2))
+       .groupBy("hour")
+       .agg(sum_(col("tip")).alias("tips"), count_().alias("n"))
+       .collect())
+"""
+
+from repro_torch.sql.dataframe import DataFrame, GroupedData
+from repro_torch.sql.expr import (AggExpr, Alias, BinOp, Col, Expr, Lit, Schema,
+                            avg_, col, collect_list, count_, lit, max_,
+                            min_, sum_, udf)
+from repro_torch.sql.optimizer import optimize
+from repro_torch.sql.plan import explain_str
+
+__all__ = ["DataFrame", "GroupedData", "Schema", "col", "lit", "udf",
+           "sum_", "count_", "min_", "max_", "avg_", "collect_list",
+           "optimize", "explain_str", "Expr", "Col", "Lit", "Alias",
+           "BinOp", "AggExpr"]

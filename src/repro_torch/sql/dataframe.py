@@ -1,0 +1,265 @@
+"""The user-facing DataFrame: a logical plan plus the context to run it.
+
+    df = ctx.read_csv("taxi.csv", schema, 8)        # or rdd.toDF(schema)
+    out = (df.where(col("payment_type") == lit("credit"))
+             .withColumn("hour", col("pickup").substr(12, 2))
+             .groupBy("hour")
+             .agg(sum_(col("tip")).alias("tips"), count_().alias("n"))
+             .orderBy("tips", ascending=False)
+             .limit(5)
+             .collect())                            # list of tuples
+    print(df.explain())                             # optimized plan tree
+
+Rows are plain tuples in schema order. ``collect``/``count``/``explain``
+take ``optimize=False`` to run the naive lowering — the benchmark's A/B
+baseline. ``limit`` is a FINAL operator: after it, only more
+orderBy/limit/actions may follow (the lowering splits the root chain
+between per-partition ops and a driver finish). ``orderBy`` keeps the
+frame open: under ``FlintConfig.adaptive`` it executes as a distributed
+range-partitioned sort wherever it sits in the plan
+(docs/adaptive_execution.md); without adaptive, a root orderBy falls
+back to the driver-side sort of the collected rows.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+from repro_torch.sql import plan as P
+from repro_torch.sql.expr import (AggExpr, Alias, Col, Expr, Schema, _as_expr)
+from repro_torch.sql.lower import apply_driver_ops, lower, vector_markers
+from repro_torch.sql.optimizer import optimize
+
+
+def _as_schema(schema) -> Schema:
+    return schema if isinstance(schema, Schema) else Schema(schema)
+
+
+def _named(c, what: str):
+    """Resolve a select/groupBy argument to a (name, Expr) pair."""
+    if isinstance(c, str):
+        return (c, Col(c))
+    if isinstance(c, Alias):
+        return (c.name, c.child)
+    if isinstance(c, Col):
+        return (c.name, c)
+    if isinstance(c, Expr):
+        raise ValueError(f"{what} expression {c.sql()} needs "
+                         f".alias(name)")
+    raise TypeError(f"bad {what} argument {c!r}")
+
+
+class GroupedData:
+    def __init__(self, df: "DataFrame", keys: tuple):
+        self._df = df
+        self._keys = keys
+
+    def agg(self, *aggs: AggExpr, numPartitions: int | None = None,
+            transport: str | None = None) -> "DataFrame":
+        if not aggs:
+            raise ValueError("agg() needs at least one aggregate")
+        named = []
+        for a in aggs:
+            if not isinstance(a, AggExpr):
+                raise TypeError(f"agg() takes sum_/count_/min_/max_/avg_/"
+                                f"collect_list expressions, got {a!r}")
+            named.append((a.name, a))
+        node = P.Aggregate(self._df.plan, self._keys, named,
+                           nparts=numPartitions, transport=transport)
+        node.schema()  # validate eagerly: unknown columns, bad dtypes
+        return DataFrame(self._df.ctx, node)
+
+
+class DataFrame:
+    def __init__(self, ctx, plan: P.Plan, *, final: bool = False):
+        self.ctx = ctx
+        self.plan = plan
+        self._final = final  # a limit is in place
+
+    # ------------------------------------------------------ constructors
+    @classmethod
+    def from_csv(cls, ctx, key: str, schema, numPartitions: int = 8
+                 ) -> "DataFrame":
+        return cls(ctx, P.Scan(key, _as_schema(schema), numPartitions))
+
+    @classmethod
+    def from_rdd(cls, rdd, schema) -> "DataFrame":
+        return cls(rdd.ctx, P.RddScan(rdd, _as_schema(schema)))
+
+    # ----------------------------------------------------------- schema
+    @property
+    def schema(self) -> Schema:
+        return self.plan.schema()
+
+    @property
+    def columns(self) -> tuple:
+        return self.schema.names
+
+    # ------------------------------------------------- transformations
+    def _require_open(self, what: str):
+        if self._final:
+            raise ValueError(f"{what} after limit is not supported — "
+                             f"limit is a final operator")
+
+    def _derive(self, plan: P.Plan, final: bool = False) -> "DataFrame":
+        plan.schema()  # eager validation at call site
+        return DataFrame(self.ctx, plan, final=final or self._final)
+
+    def select(self, *cols) -> "DataFrame":
+        self._require_open("select")
+        named = [_named(c, "select") for c in cols]
+        return self._derive(P.Project(self.plan, named))
+
+    def withColumn(self, name: str, e) -> "DataFrame":
+        self._require_open("withColumn")
+        e = _as_expr(e)
+        if name in self.columns:
+            # replace IN PLACE — positional row access keeps working
+            cols = [(n, e if n == name else Col(n))
+                    for n in self.columns]
+        else:
+            cols = [(n, Col(n)) for n in self.columns] + [(name, e)]
+        return self._derive(P.Project(self.plan, cols))
+
+    def where(self, pred: Expr) -> "DataFrame":
+        self._require_open("where")
+        return self._derive(P.Filter(self.plan, pred))
+
+    filter = where
+
+    def withWindow(self, ts_col: str, size: int, slide: int | None = None,
+                   name: str = "window_start") -> "DataFrame":
+        """Assign each row an event-time window PANE start column
+        (``ts - ts % slide``; tumbling when slide is omitted). The same
+        node drives the streaming engine's windowed aggregation
+        (repro_torch.streaming, docs/streaming.md) — a batch
+        ``withWindow(...).groupBy(name, ...)`` over the full data is the
+        reference query a streamed run must reproduce."""
+        self._require_open("withWindow")
+        return self._derive(P.Window(self.plan, ts_col, size, slide,
+                                     name))
+
+    def groupBy(self, *keys) -> GroupedData:
+        self._require_open("groupBy")
+        if not keys:
+            raise ValueError("groupBy() needs at least one key")
+        named = tuple(_named(k, "groupBy") for k in keys)
+        return GroupedData(self, named)
+
+    def join(self, other: "DataFrame", on, numPartitions: int | None = None,
+             how: str = "inner", transport: str | None = None
+             ) -> "DataFrame":
+        self._require_open("join")
+        other._require_open("join")
+        on = [on] if isinstance(on, str) else list(on)
+        return self._derive(P.Join(self.plan, other.plan, on,
+                                   nparts=numPartitions, how=how,
+                                   transport=transport))
+
+    def orderBy(self, *keys, ascending=True) -> "DataFrame":
+        if not keys:
+            raise ValueError("orderBy() needs at least one key")
+        if isinstance(ascending, bool):
+            ascending = [ascending] * len(keys)
+        elif len(ascending) != len(keys):
+            raise ValueError(f"orderBy: {len(keys)} keys but "
+                             f"{len(ascending)} ascending flags")
+
+        def sort_key(k) -> Expr:
+            if isinstance(k, str):
+                return Col(k)
+            if isinstance(k, Alias):
+                return k.child
+            if isinstance(k, Expr):
+                return k
+            raise TypeError(f"bad orderBy key {k!r}")
+
+        named = tuple((sort_key(k), bool(asc))
+                      for k, asc in zip(keys, ascending))
+        # orderBy is no longer a FINAL operator: a root Sort lowers as a
+        # distributed range-partitioned sort under FlintConfig.adaptive
+        # (driver-side sort of the collected rows otherwise), and a Sort
+        # below the root lowers the same distributed way — so the frame
+        # stays open for further transforms
+        return self._derive(P.Sort(self.plan, named))
+
+    def limit(self, n: int) -> "DataFrame":
+        if n < 0:
+            raise ValueError("limit() needs n >= 0")
+        return self._derive(P.Limit(self.plan, n), final=True)
+
+    def cache(self) -> "DataFrame":
+        """Materialize THIS frame's lowered lineage on first evaluation
+        (RDD.cache underneath). Every query derived from the returned
+        frame replans from the one shared materialization — the cache
+        point is an optimizer barrier, so derived filters/projections do
+        not specialize (and thereby miss) it."""
+        self._require_open("cache")
+        return self._derive(P.Cached(self.plan))
+
+    def uncache(self, optimize: bool = True) -> int:
+        """Drop the materializations behind every cache() point in this
+        frame's lineage (``ctx.uncache`` per token — a shared byte-capped
+        cache index honors its pins); returns the number of store keys
+        removed, 0 when nothing was materialized."""
+        rdd, _, _ = lower(self._planned(optimize), self.ctx)
+        removed = 0
+        stack, seen = [rdd], set()
+        while stack:
+            node = stack.pop()
+            if id(node) in seen:
+                continue
+            seen.add(id(node))
+            if getattr(node, "cached", False):
+                removed += node.uncache()
+            for attr in ("parent", "left", "right", "a", "b"):
+                child = getattr(node, attr, None)
+                if child is not None:
+                    stack.append(child)
+        return removed
+
+    # ------------------------------------------------------------ actions
+    def _planned(self, optimize_flag: bool) -> P.Plan:
+        return optimize(self.plan, self.ctx) if optimize_flag else self.plan
+
+    def collect(self, optimize: bool = True) -> list:
+        rdd, merge_limit, driver_ops = lower(self._planned(optimize),
+                                             self.ctx)
+        rows = self.ctx.run_action(rdd, "collect", limit=merge_limit)
+        return apply_driver_ops(rows, driver_ops)
+
+    def take(self, n: int, optimize: bool = True) -> list:
+        return self.limit(n).collect(optimize=optimize)
+
+    def count(self, optimize: bool = True) -> int:
+        plan = self._planned(optimize)
+        # Sort never changes cardinality — strip the root chain down to
+        # its limits and count the cheapest equivalent plan (no driver
+        # sort, no second optimizer pass)
+        node, limits = plan, []
+        while isinstance(node, (P.Sort, P.Limit)):
+            if isinstance(node, P.Limit):
+                limits.append(node.n)
+            node = node.child
+        if limits:
+            rdd, merge_limit, driver_ops = lower(P.Limit(node,
+                                                         min(limits)),
+                                                 self.ctx)
+            rows = self.ctx.run_action(rdd, "collect", limit=merge_limit)
+            return len(apply_driver_ops(rows, driver_ops))
+        rdd, _, _ = lower(node, self.ctx)
+        return rdd.count()
+
+    def explain(self, optimize: bool = True) -> str:
+        """The logical plan as an indented tree (optimized by default) —
+        what the golden plan-shape tests pin. With vectorization enabled
+        each operator carries its execution mode: ``[vectorized]`` when
+        its expressions compile to array kernels, ``[row-fallback: udf]``
+        (etc.) when the lowering keeps the row closures."""
+        plan = self._planned(optimize)
+        markers = vector_markers(plan, getattr(self.ctx, "config", None))
+        return P.explain_str(plan, markers)
+
+    def __repr__(self):
+        cols = ", ".join(f"{n}:{t}" for n, t in self.schema)
+        return f"DataFrame[{cols}]"

@@ -1,0 +1,644 @@
+"""Lower a logical plan onto the RDD lineage.
+
+Everything below the root Sort/Limit chain becomes plain RDD operators —
+so the DAG planner, CSE, cache(), the EOS shuffle protocol and both
+transports apply to DataFrame queries unchanged. Because the plan carries
+schemas, every emitted wide op declares its (key, value) columnar batch
+schema (rdd.batch_schema) — executors pack typed columns without per-batch
+type sniffing.
+
+Node -> lineage (row path, FlintConfig.vectorize=False):
+
+    Scan       textFile(key).map(parse-and-cast of the PRUNED columns)
+    RddScan    the RDD itself (rows are tuples matching the schema)
+    Project    map(compiled row function)
+    Filter     filter(compiled predicate)
+    Aggregate  partial (map-side combine): map(row -> (keys, partials))
+                 .reduceByKey(slot-wise merge) .map(finalize)
+               full: map(row -> (keys, row)).groupByKey().map(aggregate)
+    Join       map both sides to (key-tuple, rest-tuple), rdd.join,
+               map to key + left-rest + right-rest
+    Sort       root, >1 partition, FlintConfig.adaptive: DISTRIBUTED
+               range-partitioned sort — a sampling job picks quantile
+               splitters, repartition(partition_fn=...) range-routes each
+               row, partitions sort locally, and the index-ordered merge
+               is the total order (docs/adaptive_execution.md). The same
+               lowering serves Sort below the root (orderBy mid-query);
+               without adaptive a root Sort falls back to the driver-side
+               sort of the collected rows.
+    Limit      root-only FINAL operator: a per-partition "limit" op plus
+               the action-merge short-circuit (RDD.take's machinery);
+               Limit(Sort(X)) becomes a per-partition top-n with the
+               driver applying the total order / final truncation.
+
+With ``FlintConfig.vectorize`` (the default) every maximal
+scan/Project/Filter chain — plus the map side of a partial aggregate,
+groupByKey, or join directly above one — fuses into a SINGLE
+``mapBatches`` operator compiled by repro_torch.sql.vectorized: one batch-in /
+batch-out closure running ingest -> masks/slices -> grouped fold over
+whole column arrays, with a per-chunk fallback to the bound row closures
+(docs/vectorized_execution.md). Expressions with no vectorized form
+(udfs) stop the fusion at the longest compilable prefix; the remaining
+steps lower as row operators exactly as above.
+"""
+
+from __future__ import annotations
+
+import bisect
+import operator
+
+from repro_torch.core import rdd as R
+from repro_torch.sql import plan as P
+from repro_torch.sql import vectorized as V
+from repro_torch.sql.expr import CASTS, Schema, dtype_serde_char
+
+_SLOT_MERGE = {"sum": operator.add, "min": min, "max": max}
+
+
+def _one(row):
+    return 1
+
+
+def _identity_partition(it):
+    return it
+
+
+def sort_rows(rows: list, bound_keys: list) -> None:
+    """In-place multi-key sort: stable passes applied innermost-last."""
+    for fn, asc in reversed(bound_keys):
+        rows.sort(key=fn, reverse=not asc)
+
+
+def _topn_fn(n: int, bound_keys: list):
+    def topn(it):
+        rows = list(it)
+        sort_rows(rows, bound_keys)
+        return iter(rows[:n])
+    return topn
+
+
+# ------------------------------------------- distributed (range) sort
+
+
+class _Rev:
+    """Order-reversing wrapper: lets a DESCENDING sort key ride inside
+    an ascending composite tuple (bisect and tuple comparison only need
+    ``<``/``==``). None sorts like any other value its ``<`` admits."""
+
+    __slots__ = ("v",)
+
+    def __init__(self, v):
+        self.v = v
+
+    def __lt__(self, other):
+        return other.v < self.v
+
+    def __eq__(self, other):
+        return other.v == self.v
+
+
+def _composite_key_fn(bound_keys: list):
+    def key(row):
+        return tuple(f(row) if asc else _Rev(f(row))
+                     for f, asc in bound_keys)
+    return key
+
+
+_SAMPLES_PER_PARTITION = 64
+
+
+def _sampler_fn(bound_keys: list):
+    """Per-partition sampler for the range partitioner: sort the
+    partition by the composite key and emit ~64 evenly spaced key
+    tuples. Deterministic (no RNG) so retried/speculated attempts of
+    the sampling job return identical rows."""
+    key = _composite_key_fn(bound_keys)
+
+    def sample(it):
+        keys = sorted(key(row) for row in it)
+        if not keys:
+            return iter(())
+        step = max(1, len(keys) // _SAMPLES_PER_PARTITION)
+        return iter(keys[::step])
+    return sample
+
+
+def _range_partition_fn(splitters: list, bound_keys: list):
+    key = _composite_key_fn(bound_keys)
+
+    def pf(row):
+        return bisect.bisect_right(splitters, key(row))
+    return pf
+
+
+def _sorted_parts_fn(bound_keys: list):
+    def sort_part(it):
+        rows = list(it)
+        sort_rows(rows, bound_keys)
+        return iter(rows)
+    return sort_part
+
+
+def _range_sorted(rdd: R.RDD, bound_keys: list, ctx) -> R.RDD:
+    """Distributed range-partitioned sort: a sampling job estimates the
+    key distribution, the driver picks quantile splitters, and a
+    repartition with a range partition_fn sends each row to the
+    partition owning its key range. Partition i then holds only keys <=
+    partition i+1's (equal keys never straddle a boundary —
+    bisect_right sends them all right), so after a per-partition sort
+    the index-ordered concatenation of results IS the total order and
+    no driver-side sort remains. Skewed or duplicate-heavy keys just
+    yield duplicate splitters (several ranges collapse onto one
+    partition); empty partitions contribute no samples and no rows."""
+    nparts = rdd.nparts
+    samples = ctx.run_action(rdd.mapPartitions(_sampler_fn(bound_keys)),
+                             "collect")
+    samples.sort()
+    splitters = []
+    if samples:
+        stride = len(samples) / nparts
+        splitters = [samples[min(len(samples) - 1,
+                                 int(stride * (i + 1)))]
+                     for i in range(nparts - 1)]
+    pf = _range_partition_fn(splitters, bound_keys)
+    return (rdd.repartition(nparts, partition_fn=pf)
+            .mapPartitions(_sorted_parts_fn(bound_keys)))
+
+
+def _tuple_schema(schema: Schema, names) -> str | None:
+    return schema.serde_tuple(names)
+
+
+# ----------------------------------------------------------- entry point
+
+
+def lower(plan: P.Plan, ctx):
+    """Returns (rdd, merge_limit, driver_ops): run the rdd through
+    ``ctx.run_action(..., limit=merge_limit)``, then apply ``driver_ops``
+    (("sort", bound_keys) / ("limit", n), in order) to the rows."""
+    steps = []
+    node = plan
+    while isinstance(node, (P.Sort, P.Limit)):
+        steps.append(node)
+        node = node.child
+    rdd = _lower_engine(node, ctx)
+    inner_schema = node.schema()
+    if (len(steps) == 1 and isinstance(steps[0], P.Sort)
+            and rdd.nparts > 1
+            and getattr(getattr(ctx, "config", None), "adaptive", False)):
+        # root orderBy over >1 partition: distributed range-partitioned
+        # sort — the index-ordered merge of partition results IS the
+        # total order, so the driver applies no ops at all
+        bound = [(e.bind(inner_schema), asc) for e, asc in steps[0].keys]
+        return _range_sorted(rdd, bound, ctx), None, []
+    merge_limit = None
+    if steps and isinstance(steps[-1], P.Limit):
+        # the INNERMOST step caps the engine result: per-partition limit
+        # op + action-merge short-circuit (same machinery as RDD.take)
+        merge_limit = steps[-1].n
+        rdd = R.Narrow(rdd, "limit", merge_limit)
+    if (len(steps) == 2 and isinstance(steps[0], P.Limit)
+            and isinstance(steps[1], P.Sort)):
+        # Limit(Sort(X)) — top-n: each partition forwards only its n best
+        bound = [(e.bind(inner_schema), asc) for e, asc in steps[1].keys]
+        rdd = rdd.mapPartitions(_topn_fn(steps[0].n, bound))
+    driver_ops = []
+    for s in reversed(steps):  # innermost first
+        if isinstance(s, P.Limit):
+            driver_ops.append(("limit", s.n))
+        else:
+            driver_ops.append(("sort",
+                               [(e.bind(inner_schema), asc)
+                                for e, asc in s.keys]))
+    return rdd, merge_limit, driver_ops
+
+
+def apply_driver_ops(rows: list, driver_ops: list) -> list:
+    for op in driver_ops:
+        if op[0] == "limit":
+            rows = rows[:op[1]]
+        else:
+            sort_rows(rows, op[1])
+    return rows
+
+
+# ------------------------------------------------------- engine lowering
+
+
+def _lower_engine(node: P.Plan, ctx) -> R.RDD:
+    if isinstance(node, (P.Scan, P.Project, P.Filter)):
+        fused = _lower_chain(node, ctx)
+        if fused is not None:
+            return fused
+    if isinstance(node, P.Scan):
+        return _lower_scan(node, ctx)
+    if isinstance(node, P.RddScan):
+        return node.rdd
+    if isinstance(node, P.Project):
+        base = node.child.schema()
+        fns = [e.bind(base) for _, e in node.cols]
+        child = _lower_engine(node.child, ctx)
+        return child.map(_tuple_map(fns))
+    if isinstance(node, P.Filter):
+        pred = node.pred.bind(node.child.schema())
+        return _lower_engine(node.child, ctx).filter(pred)
+    if isinstance(node, P.Aggregate):
+        return _lower_aggregate(node, ctx)
+    if isinstance(node, P.Join):
+        return _lower_join(node, ctx)
+    if isinstance(node, P.Cached):
+        inner = _lower_engine(node.child, ctx)
+        if isinstance(node.child, P.RddScan):
+            # never flip the cached flag on the USER'S RDD object — wrap
+            # it so the mark lives on lineage this lowering owns
+            inner = inner.mapPartitions(_identity_partition)
+        return inner.cache()
+    if isinstance(node, P.Sort):
+        # orderBy is no longer driver-final: below the root it lowers as
+        # a range-partitioned distributed sort (adaptive) or a plain
+        # per-partition sort when there is nothing to distribute
+        child = _lower_engine(node.child, ctx)
+        bound = [(e.bind(node.child.schema()), asc)
+                 for e, asc in node.keys]
+        if child.nparts <= 1:
+            return child.mapPartitions(_sorted_parts_fn(bound))
+        if getattr(getattr(ctx, "config", None), "adaptive", False):
+            return _range_sorted(child, bound, ctx)
+        raise ValueError(
+            "Sort below the plan root requires FlintConfig.adaptive "
+            "(distributed range-partitioned sort) or a single-partition "
+            "input; move orderBy last or enable adaptive execution")
+    if isinstance(node, P.Limit):
+        raise ValueError("Limit is a final operator; it can only "
+                         "appear at the plan root (limit last)")
+    raise TypeError(f"unknown plan node {type(node).__name__}")
+
+
+def _lower_scan(node: P.Scan, ctx) -> R.RDD:
+    full = node.full_schema
+    sel = node.schema().names
+    idx = [full.index(n) for n in sel]
+    casters = [CASTS[full.dtype_of(n)] for n in sel]
+    return ctx.textFile(node.key, node.nparts).map(_parse_fn(idx, casters))
+
+
+def _parse_fn(idx: list, casters: list):
+    def parse(line):
+        parts = line.split(",")
+        return tuple(c(parts[i]) for c, i in zip(casters, idx))
+    return parse
+
+
+# ------------------------------------------------- vectorized chain fusion
+
+
+def _tuple_map(fns):
+    def project(row):
+        return tuple(f(row) for f in fns)
+    return project
+
+
+def _vec_one(cols, n):
+    return 1
+
+
+def _row_chain(fn_specs):
+    """The exact row-semantics pipeline for a fused segment — chunks the
+    vectorized path rejects re-run through this (see make_fused)."""
+    def chain(it):
+        for kind, fn in fn_specs:
+            it = map(fn, it) if kind == "map" else filter(fn, it)
+        return it
+    return chain
+
+
+def _split_chain(node: P.Plan):
+    """Peel the Project/Filter chain off ``node`` (inclusive). Returns
+    (base, steps) with steps ordered base-first."""
+    steps = []
+    while isinstance(node, (P.Project, P.Filter)):
+        steps.append(node)
+        node = node.child
+    steps.reverse()
+    return node, steps
+
+
+def _vector_segment(base: P.Plan, steps: list, ctx):
+    """Compile the vectorizable PREFIX of a chain over ``base``. Returns
+    (base_rdd, ingest, stages, row_fns, schema_after_prefix, n_compiled)
+    or None when vectorization is off — or when a non-Scan base compiles
+    zero steps (nothing to gain over the plain row operators)."""
+    cfg = getattr(ctx, "config", None)
+    if cfg is None or not getattr(cfg, "vectorize", False):
+        return None
+    if isinstance(base, P.Scan):
+        full = base.full_schema
+        sel = base.schema().names
+        idx = [full.index(n) for n in sel]
+        casters = [CASTS[full.dtype_of(n)] for n in sel]
+        ingest = V.scan_ingest(
+            [(i, full.dtype_of(n), c)
+             for i, n, c in zip(idx, sel, casters)])
+        row_fns = [("map", _parse_fn(idx, casters))]
+        base_rdd = ctx.textFile(base.key, base.nparts)
+    else:
+        ingest = V.rows_ingest([t for _, t in base.schema().fields])
+        row_fns = []
+        base_rdd = _lower_engine(base, ctx)
+    schema = base.schema()
+    stages: list = []
+    compiled = 0
+    for st in steps:
+        try:
+            if isinstance(st, P.Filter):
+                stages.append(V.filter_stage(st.pred.bind_vec(schema)))
+                row_fns.append(("filter", st.pred.bind(schema)))
+            else:
+                stages.append(V.project_stage(
+                    [e.bind_vec(schema) for _, e in st.cols]))
+                row_fns.append(("map", _tuple_map(
+                    [e.bind(schema) for _, e in st.cols])))
+        except V.VectorizeUnsupported:
+            break
+        schema = st.schema()
+        compiled += 1
+    if not isinstance(base, P.Scan) and compiled == 0:
+        return None
+    return base_rdd, ingest, stages, row_fns, schema, compiled
+
+
+def _lower_chain(node: P.Plan, ctx) -> R.RDD | None:
+    """Fuse ``node``'s Project/Filter chain into one rows-emitting
+    mapBatches operator; steps past the compilable prefix stay row ops."""
+    base, steps = _split_chain(node)
+    seg = _vector_segment(base, steps, ctx)
+    if seg is None:
+        return None
+    base_rdd, ingest, stages, row_fns, _schema, compiled = seg
+    fused = V.make_fused(ingest, stages, V.rows_emit, _row_chain(row_fns),
+                         ctx.config.vector_batch_rows)
+    rdd = base_rdd.mapBatches(fused)
+    for st in steps[compiled:]:
+        sch = st.child.schema()
+        if isinstance(st, P.Filter):
+            rdd = rdd.filter(st.pred.bind(sch))
+        else:
+            rdd = rdd.map(_tuple_map([e.bind(sch) for _, e in st.cols]))
+    return rdd
+
+
+def _fused_kv(child_plan: P.Plan, ctx, row_mapper, emit_builder):
+    """Fuse a FULLY-vectorizable chain plus a key/value emission into one
+    operator (the map side of an aggregate/group/join). ``emit_builder``
+    compiles the emission over the chain's output schema and may raise
+    VectorizeUnsupported; any miss returns None and the caller falls back
+    to ``_lower_engine(child).map(row_mapper)`` — which still fuses the
+    chain itself, just with row-tuple emission."""
+    base, steps = _split_chain(child_plan)
+    seg = _vector_segment(base, steps, ctx)
+    if seg is None:
+        return None
+    base_rdd, ingest, stages, row_fns, schema, compiled = seg
+    if compiled < len(steps):
+        return None
+    try:
+        emit = emit_builder(schema)
+    except V.VectorizeUnsupported:
+        return None
+    row_fns.append(("map", row_mapper))
+    fused = V.make_fused(ingest, stages, emit, _row_chain(row_fns),
+                         ctx.config.vector_batch_rows)
+    return base_rdd.mapBatches(fused)
+
+
+def _key_value_fn(key_idx: list, rest_idx: list):
+    def fn(row):
+        return (tuple(row[i] for i in key_idx),
+                tuple(row[j] for j in rest_idx))
+    return fn
+
+
+def _lower_join(node: P.Join, ctx) -> R.RDD:
+    ls, rs = node.left.schema(), node.right.schema()
+    lrest, rrest = node.rest_names(node.left), node.rest_names(node.right)
+    kschema = _tuple_schema(ls, node.on)
+    left = _lower_join_side(node.left, ctx, ls, node.on, lrest,
+                            kschema, _tuple_schema(ls, lrest))
+    right = _lower_join_side(node.right, ctx, rs, node.on, rrest,
+                             kschema, _tuple_schema(rs, rrest))
+    schemas = (kschema, _tuple_schema(ls, lrest), _tuple_schema(rs, rrest))
+    joined = left.join(right, node.nparts, transport=node.transport,
+                       batch_schemas=schemas, how=node.how)
+    return joined.map(_join_row_fn(len(lrest), len(rrest)))
+
+
+def _join_row_fn(lwidth: int, rwidth: int):
+    """(key, (lrest|None, rrest|None)) -> output row; an absent side
+    (the unmatched half of an outer join) pads with None columns."""
+    lpad, rpad = (None,) * lwidth, (None,) * rwidth
+
+    def to_row(kv):
+        lv, rv = kv[1]
+        return (kv[0] + (lpad if lv is None else lv)
+                + (rpad if rv is None else rv))
+    return to_row
+
+
+def _lower_join_side(side: P.Plan, ctx, schema: Schema, on, rest,
+                     kschema: str | None, vschema: str | None) -> R.RDD:
+    key_idx = [schema.index(n) for n in on]
+    rest_idx = [schema.index(n) for n in rest]
+    mapper = _key_value_fn(key_idx, rest_idx)
+    if kschema and vschema and key_idx and rest_idx:
+        def vec_emit(sch):
+            return V.make_kv_plain_emit(
+                [V.col_selector(i) for i in key_idx], rest_idx,
+                kschema, vschema)
+        fused = _fused_kv(side, ctx, mapper, vec_emit)
+        if fused is not None:
+            return fused
+    return _lower_engine(side, ctx).map(mapper)
+
+
+def _lower_aggregate(node: P.Aggregate, ctx) -> R.RDD:
+    base = node.child.schema()
+    out_schema = node.schema()
+    kfs = [e.bind(base) for _, e in node.keys]
+    kschema = _tuple_schema(out_schema, [n for n, _ in node.keys])
+
+    def keyer(row):
+        return tuple(k(row) for k in kfs)
+
+    if node.partial:
+        return _lower_partial(node, ctx, base, keyer, kschema)
+    return _lower_full(node, ctx, base, keyer, kschema)
+
+
+def _lower_partial(node: P.Aggregate, ctx, base: Schema,
+                   keyer, kschema: str | None) -> R.RDD:
+    """Map-side-combine lowering: rows fold into per-key PARTIAL tuples
+    before they ever reach the wire; reduceByKey merges slot-wise with
+    associative ops (sum/min/max — avg rides as (sum, count)). Under
+    vectorize=True the whole map side (chain + keyer + per-key slot fold)
+    fuses into one batch operator emitting pre-combined partials."""
+    slot_ops: list = []
+    inits: list = []
+    layout: list = []  # (op, first slot, slot count) per aggregate
+    vchars: list = []
+    for name, a in node.aggs:
+        off = len(slot_ops)
+        arg = a.child.bind(base) if a.child is not None else None
+        argc = (dtype_serde_char(a.child.dtype(base))
+                if a.child is not None else "i")
+        if a.op == "count":
+            slot_ops.append("sum")
+            inits.append(_one)
+            vchars.append("i")
+        elif a.op == "avg":
+            slot_ops += ["sum", "sum"]
+            inits += [arg, _one]
+            vchars += [argc, "i"]
+        else:  # sum / min / max
+            slot_ops.append(a.op)
+            inits.append(arg)
+            vchars.append(argc)
+        layout.append((a.op, off, len(slot_ops) - off))
+
+    def mapper(row):
+        return (keyer(row), tuple(f(row) for f in inits))
+
+    def merge(a, b):
+        return tuple(_SLOT_MERGE[op](x, y)
+                     for op, x, y in zip(slot_ops, a, b))
+
+    def finalize(kv):
+        key, vals = kv
+        out = []
+        for op, off, _width in layout:
+            if op == "avg":
+                out.append(vals[off] / vals[off + 1])
+            else:
+                out.append(vals[off])
+        return key + tuple(out)
+
+    def vec_emit(schema):
+        key_fns = [e.bind_vec(schema) for _, e in node.keys]
+        slot_fns: list = []
+        for _name, a in node.aggs:
+            argf = (a.child.bind_vec(schema)
+                    if a.child is not None else None)
+            if a.op == "count":
+                slot_fns.append(_vec_one)
+            elif a.op == "avg":
+                slot_fns += [argf, _vec_one]
+            else:
+                slot_fns.append(argf)
+        return V.make_kv_agg_emit(key_fns, slot_fns, slot_ops,
+                                  ctx.config.vector_backend,
+                                  ctx.config.vector_device)
+
+    mapped = _fused_kv(node.child, ctx, mapper, vec_emit)
+    if mapped is None:
+        mapped = _lower_engine(node.child, ctx).map(mapper)
+    vschema = "t(%s)" % ",".join(vchars) if vchars else None
+    agged = mapped.reduceByKey(
+        merge, node.nparts or mapped.nparts, transport=node.transport,
+        batch_schema=(kschema, vschema) if kschema else None)
+    return agged.map(finalize)
+
+
+def _lower_full(node: P.Aggregate, ctx, base: Schema,
+                keyer, kschema: str | None) -> R.RDD:
+    """groupByKey lowering (collect_list, or optimize=False): full rows
+    ship to the reducers; aggregates evaluate over each group. The map
+    side (chain + key computation + columnar (key, row) emission) still
+    fuses under vectorize=True; the per-group fold stays row-level."""
+    aggfns = []
+    for name, a in node.aggs:
+        arg = a.child.bind(base) if a.child is not None else None
+        aggfns.append(_group_agg_fn(a.op, arg))
+
+    def mapper(row):
+        return (keyer(row), row)
+
+    def finalize(kv):
+        key, rows = kv
+        return key + tuple(f(rows) for f in aggfns)
+
+    vschema = _tuple_schema(base, base.names)
+
+    def vec_emit(schema):
+        key_fns = [e.bind_vec(schema) for _, e in node.keys]
+        return V.make_kv_plain_emit(key_fns,
+                                    list(range(len(schema.names))),
+                                    kschema, vschema)
+
+    mapped = None
+    if kschema and vschema:
+        mapped = _fused_kv(node.child, ctx, mapper, vec_emit)
+    if mapped is None:
+        mapped = _lower_engine(node.child, ctx).map(mapper)
+    grouped = mapped.groupByKey(
+        node.nparts or mapped.nparts, transport=node.transport,
+        batch_schema=(kschema, vschema) if kschema else None)
+    return grouped.map(finalize)
+
+
+# ---------------------------------------------------------- explain marks
+
+
+def vector_markers(plan: P.Plan, config) -> dict:
+    """id(node) -> ``" [vectorized]"`` / ``" [row-fallback: <reason>]"``
+    suffixes for explain(): a dry-run of the same bind_vec compilation the
+    lowering performs, so the rendered plan shows which operators will run
+    on the array path. Empty when vectorization is off."""
+    if config is None or not getattr(config, "vectorize", False):
+        return {}
+    marks: dict = {}
+
+    def mark(node, exprs, schema):
+        try:
+            for e in exprs:
+                e.bind_vec(schema)
+            marks[id(node)] = " [vectorized]"
+        except V.VectorizeUnsupported as ex:
+            marks[id(node)] = f" [row-fallback: {ex.reason}]"
+
+    def walk(node):
+        if isinstance(node, P.Scan):
+            marks[id(node)] = " [vectorized]"
+        elif isinstance(node, P.Project):
+            mark(node, [e for _, e in node.cols], node.child.schema())
+        elif isinstance(node, P.Filter):
+            mark(node, [node.pred], node.child.schema())
+        elif isinstance(node, P.Aggregate):
+            base = node.child.schema()
+            exprs = [e for _, e in node.keys]
+            exprs += [a.child for _, a in node.aggs if a.child is not None]
+            if any(a.op == "collect_list" for _, a in node.aggs):
+                marks[id(node)] = " [row-fallback: collect_list]"
+            else:
+                mark(node, exprs, base)
+        elif isinstance(node, P.Join):
+            marks[id(node)] = " [vectorized]"
+        for c in node.children():
+            walk(c)
+
+    walk(plan)
+    return marks
+
+
+def _group_agg_fn(op: str, arg):
+    if op == "count":
+        return len
+    if op == "sum":
+        return lambda rows: sum(arg(r) for r in rows)
+    if op == "avg":
+        return lambda rows: sum(arg(r) for r in rows) / len(rows)
+    if op == "min":
+        return lambda rows: min(arg(r) for r in rows)
+    if op == "max":
+        return lambda rows: max(arg(r) for r in rows)
+    if op == "collect_list":
+        return lambda rows: [arg(r) for r in rows]
+    raise ValueError(f"unknown aggregate {op}")

@@ -1,0 +1,361 @@
+"""Rule-based logical-plan optimizer.
+
+Rewrites, in order:
+
+  1. PUSHDOWN FIXPOINT — local rules applied bottom-up until the plan
+     stops changing:
+       * combine adjacent Filters / Projects / Limits,
+       * predicate pushdown through Project (rewriting the predicate in
+         terms of the project's inputs), below Join (AND-conjuncts split
+         and routed to the side(s) whose columns they mention — key-only
+         conjuncts go to BOTH sides), and below Aggregate (conjuncts on
+         grouping keys only).
+     A NON-DETERMINISTIC expression blocks pushdown: filtering earlier
+     changes which rows it is evaluated on, and substituting it into a
+     predicate would re-evaluate it — either way results change.
+  2. PROJECTION PRUNING — a top-down required-columns pass that narrows
+     every Project, drops unused aggregates, pushes the needed column
+     set INTO the Scan (only those fields are parsed), and inserts
+     narrowing Projects directly below shuffle operators so shuffles
+     ship only referenced columns.
+  3. PARTIAL-AGGREGATION SELECTION — an Aggregate whose aggregates are
+     all algebraic (sum/count/min/max/avg) lowers to map-side-combine
+     reduceByKey; collect_list forces the groupByKey lowering.
+  4. TRANSPORT CHOICE — when the engine default is "auto", each shuffle
+     (Aggregate/Join) gets a cost-model SQS-vs-S3 choice from estimated
+     input bytes (scan size x selectivity/width factors, or the RDD
+     lineage estimator for toDF sources) and the ledger's prices.
+
+Lowering with ``optimize=False`` skips all four — the benchmark's A/B
+baseline.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core import costs
+from repro_torch.core.dag import estimate_lineage_bytes
+from repro_torch.sql.expr import (Col, Lit, join_conjuncts, split_conjuncts)
+from repro_torch.sql.plan import (Aggregate, Cached, Filter, Join, Limit, Plan,
+                            Project, RddScan, Scan, Sort, Window,
+                            explain_str)
+
+#: map-side combine ships partially-merged values; assume it halves bytes
+PARTIAL_COMBINE_FACTOR = 0.5
+#: rough per-value wire widths for the projection-ratio estimate
+_DTYPE_WIDTH = {"int": 8, "float": 8, "bool": 1, "str": 16}
+
+
+def optimize(plan: Plan, ctx=None) -> Plan:
+    """Full rewrite. ``ctx`` supplies the store (scan sizes) and config
+    (whether transport choice applies) — without it the size-dependent
+    transport rule is skipped."""
+    plan = _fixpoint(plan)
+    plan = _prune(plan, list(plan.schema().names))
+    plan = _fixpoint(plan)  # collapse projects pruning introduced
+    plan = _choose_partial(plan)
+    if ctx is not None and ctx.config.shuffle_backend == "auto":
+        _choose_transport(plan, ctx)
+    return plan
+
+
+# ------------------------------------------------------ pushdown fixpoint
+
+
+def _fixpoint(plan: Plan, max_rounds: int = 20) -> Plan:
+    before = explain_str(plan)
+    for _ in range(max_rounds):
+        plan = _rewrite(plan)
+        after = explain_str(plan)
+        if after == before:
+            return plan
+        before = after
+    return plan
+
+
+def _col_counts(e, counts: dict) -> None:
+    if isinstance(e, Col):
+        counts[e.name] = counts.get(e.name, 0) + 1
+    for c in e.children():
+        _col_counts(c, counts)
+
+
+def _inline_safe(outer_exprs, inner_cols) -> bool:
+    """Substituting inner definitions into the outer expressions must not
+    DUPLICATE non-trivial subtrees: a column referenced twice whose
+    definition is itself a composite doubles the tree, and chained merges
+    turn that into exponential growth (both in plan size and in what
+    serde ships to every task). Trivial definitions (bare columns,
+    literals) inline freely."""
+    counts: dict = {}
+    for e in outer_exprs:
+        _col_counts(e, counts)
+    for name, ie in inner_cols:
+        if isinstance(ie, (Col, Lit)):
+            continue
+        if counts.get(name, 0) > 1:
+            return False
+    return True
+
+
+def _rewrite(node: Plan) -> Plan:
+    node = node.with_children([_rewrite(c) for c in node.children()])
+    if isinstance(node, Filter):
+        return _rewrite_filter(node)
+    if (isinstance(node, Project) and isinstance(node.child, Project)
+            and not isinstance(node, Window)
+            and not isinstance(node.child, Window)):
+        # Window is a Project structurally but keeps its identity —
+        # merging would dissolve the window spec out of the plan
+        inner = node.child
+        if (all(e.deterministic for _, e in inner.cols)
+                and _inline_safe([e for _, e in node.cols], inner.cols)):
+            mapping = {n: e for n, e in inner.cols}
+            return Project(inner.child,
+                           [(n, e.substitute(mapping))
+                            for n, e in node.cols])
+    if isinstance(node, Limit) and isinstance(node.child, Limit):
+        return Limit(node.child.child, min(node.n, node.child.n))
+    return node
+
+
+def _rewrite_filter(node: Filter) -> Plan:
+    child = node.child
+    if isinstance(child, Filter):
+        return Filter(child.child,
+                      join_conjuncts(split_conjuncts(child.pred)
+                                     + split_conjuncts(node.pred)))
+    if isinstance(child, Project):
+        if not _inline_safe([node.pred], child.cols):
+            return node
+        mapping = {n: e for n, e in child.cols}
+        sub = node.pred.substitute(mapping)
+        if sub.deterministic:
+            if isinstance(child, Window):
+                # push below the window, keep the Window node on top
+                # (the pane column substitutes to its defining arithmetic)
+                return child.with_children([Filter(child.child, sub)])
+            return Project(Filter(child.child, sub), child.cols)
+        return node
+    if isinstance(child, Join):
+        return _push_filter_join(node, child)
+    if isinstance(child, Aggregate):
+        return _push_filter_aggregate(node, child)
+    return node
+
+
+def _push_filter_join(node: Filter, join: Join) -> Plan:
+    if join.how != "inner":
+        # an outer side resurrects filtered rows as None-padded output
+        # (and key predicates pushed to the preserved side change which
+        # rows pad vs match) — pushdown is only sound for inner joins
+        return node
+    lnames = set(join.left.schema().names)
+    rnames = set(join.right.schema().names)
+    on = set(join.on)
+    to_left, to_right, kept = [], [], []
+    for conj in split_conjuncts(node.pred):
+        refs = conj.refs()
+        if not conj.deterministic:
+            kept.append(conj)
+        elif refs <= on:
+            # a key-only predicate holds on BOTH sides of an inner
+            # equi-join: push two copies, shrink both shuffles
+            to_left.append(conj)
+            to_right.append(conj)
+        elif refs <= lnames:
+            to_left.append(conj)
+        elif refs <= rnames:
+            to_right.append(conj)
+        else:
+            kept.append(conj)
+    if not to_left and not to_right:
+        return node
+    left = Filter(join.left, join_conjuncts(to_left)) if to_left \
+        else join.left
+    right = Filter(join.right, join_conjuncts(to_right)) if to_right \
+        else join.right
+    out: Plan = Join(left, right, join.on, join.nparts, join.how,
+                     join.transport)
+    if kept:
+        out = Filter(out, join_conjuncts(kept))
+    return out
+
+
+def _push_filter_aggregate(node: Filter, agg: Aggregate) -> Plan:
+    """Conjuncts referencing only the GROUPING KEYS filter the same
+    groups whether applied before or after aggregation — push them below
+    (rewritten in terms of the key expressions). Anything touching an
+    aggregate output stays above."""
+    key_names = {n for n, _ in agg.keys}
+    mapping = {n: e for n, e in agg.keys}
+    if not all(e.deterministic for e in mapping.values()):
+        return node
+    pushed, kept = [], []
+    for conj in split_conjuncts(node.pred):
+        sub = conj.substitute(mapping)
+        if conj.refs() <= key_names and sub.deterministic:
+            pushed.append(sub)
+        else:
+            kept.append(conj)
+    if not pushed:
+        return node
+    out: Plan = Aggregate(Filter(agg.child, join_conjuncts(pushed)),
+                          agg.keys, agg.aggs, agg.nparts, agg.partial,
+                          agg.transport)
+    if kept:
+        out = Filter(out, join_conjuncts(kept))
+    return out
+
+
+# ----------------------------------------------------- projection pruning
+
+
+def _ordered(names: set, schema) -> list:
+    return [n for n in schema.names if n in names]
+
+
+def _narrow(child: Plan, needed: set) -> Plan:
+    """Insert a pass-through Project when ``child`` carries columns a
+    shuffle above it does not need — shuffles ship only what is used."""
+    names = child.schema().names
+    if set(names) <= needed:
+        return child
+    keep = [n for n in names if n in needed]
+    return Project(child, [(n, Col(n)) for n in keep])
+
+
+def _prune(node: Plan, required: list) -> Plan:
+    req = set(required)
+    if isinstance(node, Scan):
+        keep = _ordered(req, node.full_schema) or [node.full_schema.names[0]]
+        return Scan(node.key, node.full_schema, node.nparts, keep)
+    if isinstance(node, RddScan):
+        # the source RDD's rows are fixed; narrow immediately above it
+        return _narrow(node, req)
+    if isinstance(node, Window):
+        # a Window passes every child column through; pruning the CHILD
+        # to what is needed above (plus the event-time column the pane
+        # derives from) narrows it, and rebuilding re-derives the
+        # passthrough list from the narrowed child schema
+        child_req = (req - {node.name}) | {node.ts_col}
+        child = _prune(node.child, _ordered(child_req,
+                                            node.child.schema()))
+        return Window(child, node.ts_col, node.size, node.slide,
+                      node.name)
+    if isinstance(node, Project):
+        cols = [(n, e) for n, e in node.cols if n in req]
+        if not cols:
+            cols = [node.cols[0]]
+        child_req = set()
+        for _, e in cols:
+            child_req |= e.refs()
+        return Project(_prune(node.child, _ordered(child_req,
+                                                   node.child.schema())),
+                       cols)
+    if isinstance(node, Filter):
+        child_req = req | node.pred.refs()
+        return Filter(_prune(node.child, _ordered(child_req,
+                                                  node.child.schema())),
+                      node.pred)
+    if isinstance(node, Aggregate):
+        aggs = [(n, a) for n, a in node.aggs if n in req]
+        child_req = set()
+        for _, e in node.keys:
+            child_req |= e.refs()
+        for _, a in aggs:
+            child_req |= a.refs()
+        child = _prune(node.child, _ordered(child_req,
+                                            node.child.schema()))
+        return Aggregate(_narrow(child, child_req), node.keys, aggs,
+                         node.nparts, node.partial, node.transport)
+    if isinstance(node, Join):
+        on = set(node.on)
+        lreq = (req | on) & set(node.left.schema().names)
+        rreq = (req | on) & set(node.right.schema().names)
+        left = _prune(node.left, _ordered(lreq, node.left.schema()))
+        right = _prune(node.right, _ordered(rreq, node.right.schema()))
+        return Join(_narrow(left, lreq), _narrow(right, rreq), node.on,
+                    node.nparts, node.how, node.transport)
+    if isinstance(node, Sort):
+        child_req = set(req)
+        for e, _ in node.keys:
+            child_req |= e.refs()
+        return Sort(_prune(node.child, _ordered(child_req,
+                                                node.child.schema())),
+                    node.keys)
+    if isinstance(node, Limit):
+        return Limit(_prune(node.child, required), node.n)
+    if isinstance(node, Cached):
+        # barrier: the materialization must stay query-independent, so
+        # everything below it is required in full (derived queries with
+        # different projections still share one cache token)
+        return Cached(_prune(node.child,
+                             list(node.child.schema().names)))
+    raise TypeError(f"unknown plan node {type(node).__name__}")
+
+
+# ------------------------------------------- partial-aggregate selection
+
+
+def _choose_partial(node: Plan) -> Plan:
+    node = node.with_children([_choose_partial(c)
+                               for c in node.children()])
+    if isinstance(node, Aggregate):
+        partial = all(a.algebraic for _, a in node.aggs)
+        return Aggregate(node.child, node.keys, node.aggs, node.nparts,
+                         partial, node.transport)
+    return node
+
+
+# --------------------------------------------------- transport selection
+
+
+def _row_width(schema) -> float:
+    return sum(_DTYPE_WIDTH.get(t, 32) for _, t in schema) or 1.0
+
+
+def _choose_transport(node: Plan, ctx) -> tuple:
+    """Bottom-up (estimated bytes, partition count) walk; Aggregate/Join
+    nodes get their SQS-vs-S3 choice from the cost model. Mutates the
+    shuffle nodes' ``transport`` in place (the tree shape is final by
+    now)."""
+    if isinstance(node, Scan):
+        try:
+            total = float(ctx.store.size(node.key))
+        except Exception:
+            total = 0.0
+        ratio = _row_width(node.schema()) / _row_width(node.full_schema)
+        return total * ratio, node.nparts
+    if isinstance(node, RddScan):
+        try:
+            est = estimate_lineage_bytes(node.rdd, ctx._cache_index)
+        except Exception:
+            est = 0.0
+        return est, node.rdd.nparts
+    if isinstance(node, Project):
+        b, p = _choose_transport(node.child, ctx)
+        ratio = (_row_width(node.schema())
+                 / _row_width(node.child.schema()))
+        return b * ratio, p
+    if isinstance(node, Filter):
+        b, p = _choose_transport(node.child, ctx)
+        return b * costs.EST_FILTER_SELECTIVITY, p
+    if isinstance(node, Aggregate):
+        b, p = _choose_transport(node.child, ctx)
+        shuffled = b * (PARTIAL_COMBINE_FACTOR if node.partial else 1.0)
+        nparts = node.nparts or p
+        if node.transport is None:
+            node.transport = costs.pick_shuffle_transport(shuffled, p,
+                                                          nparts)
+        return b * costs.EST_AGG_OUTPUT_FACTOR, nparts
+    if isinstance(node, Join):
+        lb, lp = _choose_transport(node.left, ctx)
+        rb, rp = _choose_transport(node.right, ctx)
+        nparts = node.nparts or max(lp, rp)
+        if node.transport is None:
+            node.transport = costs.pick_shuffle_transport(
+                lb + rb, max(lp, rp), nparts)
+        return max(lb, rb), nparts
+    if isinstance(node, (Sort, Limit, Cached)):
+        return _choose_transport(node.child, ctx)
+    raise TypeError(f"unknown plan node {type(node).__name__}")

@@ -137,3 +137,8 @@ def make_batch(cfg, key, batch=2, seq=16):
     if cfg.is_enc_dec:
         out["enc_embeds"] = jax.random.normal(key, (batch, 8, cfg.d_model))
     return out
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")
