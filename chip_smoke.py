@@ -7,9 +7,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 
 1. Device and card: a CUDA device of capability (9, 0); prints its name and
    power limit as nvidia-smi reports them.
-2. Build: compiles both kernels from src/repro_torch/kernels/csrc/ for
-   sm_90a, one nvcc per source, started together, and prints what ptxas
-   reports for each.
+2. Build: compiles the three kernels from src/repro_torch/kernels/csrc/
+   for sm_90a, one nvcc per source, started together, and prints what
+   ptxas reports for each.
 3. Flash attention against plain: the kernel against its plain PyTorch
    version (repro_torch.kernels.ref) on the five shapes of the JAX
    package's flash-attention sweep plus yi-9b's prefill shape, in f32
@@ -27,11 +27,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 5. Serve: yi-9b at full width (48 layers, d_model 4096, bf16), weights
    drawn from a seeded generator on the card, batch 8, prompt 512, 32 new
    tokens, greedy, through repro_torch.models.lm.generate. The kernel's
-   launch count must rise by exactly 48 (one per layer, all in prefill),
-   two runs must give the same tokens, and a step-by-step replay must give
-   finite logits whose greedy picks are those tokens; a reduced yi-9b in
-   f32 checks the kernel path against the plain path. A profiler trace of
-   one prefill and three decode steps shows where the time goes.
+   launch count, set to 0 before each request batch, must read exactly 48
+   after it (one per layer, all in prefill), two runs must give the same
+   tokens, and a step-by-step replay must give finite logits whose greedy
+   picks are those tokens; a reduced yi-9b in f32 (phase 3) checks the
+   kernel path against the plain path. A profiler trace of one prefill and
+   three decode steps shows where the time goes.
 6. Engine: the port's Flint engine runs two taxi SQL queries (filter and
    groupBy; two aggregations and a join) over 2,000,000 rows of
    repro_torch.data.synthetic.taxi_csv in 8 partitions, once with
@@ -40,7 +41,25 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    bucket_reduce's launch count must rise by exactly the number of
    grouped_reduce calls that returned an array (more than 0). A profiler
    trace of one torch-route query gives the device's busy time.
-7. Prints the kernels line, then the device line last.
+7. grouped_matmul against plain: the kernel against grouped_matmul_ref
+   on the four shapes of the JAX package's grouped-matmul sweep and two
+   ragged shapes, in f32 (1e-4 * d) and bf16 (1e-5 * d plus one bf16 ulp),
+   then on mixtral-8x22b's two prefill products in bf16; two launches must
+   give the same bits. Per shape the kernel's, the plain version's and one
+   torch.bmm's times (a yardstick the port never calls), and the least
+   time the card could take.
+8. MoE paths: mixtral-8x22b at full width with one layer in f32; prefill
+   at batch 2 x 512 through the kernel (moe_impl "gmm") against the plain
+   einsum path, within 1e-4 of the largest logit, and the layer's MoE
+   output alone within 1e-4 of its largest value; then the serve CLI on
+   the reduced mixtral with --moe-impl gmm must launch the kernel.
+9. Serve MoE: mixtral-8x22b at full width with 8 of its 56 layers (all 56
+   do not fit on one card), bf16, moe_impl "gmm", with the gates of phase
+   5: exactly 24 grouped_matmul launches (three per layer, all in prefill;
+   decode takes the einsum path) and 8 flash-attention launches per
+   request batch, identical tokens twice, a replay that agrees, and a
+   trace of prefill and three decode steps.
+10. Prints the kernels line, then the device line last.
 """
 
 from __future__ import annotations
@@ -85,6 +104,22 @@ BR_LARGE = (4_194_304, 4096, 64)
 BR_TOLS = {"float32": (1e-4, 0.0), "bfloat16": (1e-2, 2.0**-6), "exact": (0.0, 0.0)}
 
 ENGINE_ROWS, ENGINE_PARTS = 2_000_000, 8
+
+# grouped_matmul (e, t, d, f): tests/test_kernels.py's grouped-matmul sweep,
+# two ragged shapes (no dim a multiple of 8 or of a tile), then mixtral-8x22b's
+# prefill products at batch 8 x 512 (4 groups of 1024 tokens x capacity 328):
+# gate and up, then down
+GMM_SWEEP = [(4, 64, 32, 48), (2, 128, 128, 128), (8, 16, 64, 8), (1, 256, 512, 128),
+             (3, 100, 72, 40), (2, 37, 50, 13)]
+GMM_MIXTRAL = [(8, 1312, 6144, 16384), (8, 1312, 16384, 6144)]
+# |kernel - plain| <= atol + rtol * |plain|. f32: the JAX package's sweep
+# bound (1e-4 * d, 1e-4). bf16: both versions sum exact bf16 products in f32
+# and round once, so they differ by at most one bf16 ulp (2**-7 relative)
+# where their f32 sums straddle a rounding boundary; atol 1e-5 * d covers
+# the f32 sums' order, far inside the reference's 5e-2 * d
+GMM_TOLS = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 2.0**-7)}
+# mixtral-8x22b: all 56 layers (about 282 GB in bf16) do not fit on one card
+SERVE_MOE_LAYERS = 8
 
 
 def fail(msg: str):
@@ -323,6 +358,120 @@ def time_grouped_reduce(card):
               f"{t_call:.4f} ms a call with copies; numpy fold {t_np:.4f} ms", flush=True)
 
 
+def gmm_bound(e, t, d, f, dtype_name, itemsize):
+    """Least time (ms) for one call: x, w read once and out written once,
+    against 2*E*T*D*F FLOPs at the dense peak of the inputs' type."""
+    t_bytes = itemsize * (e * t * d + e * d * f + e * t * f) / HBM_BYTES_S
+    t_ops = 2.0 * e * t * d * f / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_gmm(shape, dtype, gmm, ref):
+    """grouped_matmul's kernel against its plain version on one shape and
+    dtype; returns the row of numbers for it."""
+    import torch
+    e, t, d, f = shape
+    name = str(dtype).replace("torch.", "")
+    gen = torch.Generator(device="cuda").manual_seed(e * 1009 + t * 31 + d + f)
+    x = torch.randn((e, t, d), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((e, d, f), generator=gen, device="cuda").to(dtype)
+
+    def kernel():
+        return gmm.grouped_matmul(x, w)
+
+    def plain():
+        return ref.grouped_matmul_ref(x, w)
+
+    out, out2 = kernel(), kernel()
+    torch.cuda.synchronize()
+    exp = plain()
+    torch.cuda.synchronize()
+    if out.dtype != dtype or out.shape != (e, t, f):
+        fail(f"grouped_matmul {shape} {name}: got {out.dtype} {tuple(out.shape)}")
+    if not torch.equal(out, out2):
+        fail(f"grouped_matmul {shape} {name}: two launches differ")
+    atol_per_d, rtol = GMM_TOLS[name]
+    atol = atol_per_d * d
+    diff = (out.float() - exp.float()).abs()
+    err = float(diff.max())
+    if not bool((diff <= atol + rtol * exp.float().abs()).all()):
+        fail(f"grouped_matmul {shape} {name}: max |kernel - plain| = {err} "
+             f"> atol {atol} + rtol {rtol} * |plain|")
+
+    def library():  # the yardstick: cuBLAS through one torch.bmm; never used by the port
+        return torch.bmm(x, w)
+
+    big = e * t * d * f >= 2**36
+    t_kernel = time_ms(kernel, iters=5 if big else 50)
+    t_plain = time_ms(plain, iters=3 if big else 20)
+    t_lib = time_ms(library, iters=5 if big else 50)
+    bound, bound_by = gmm_bound(e, t, d, f, name, x.element_size())
+    # max_err_scaled: max |kernel - plain| / max(|plain|, 1)
+    row = {"shape": [e, t, d, f], "dtype": name, "max_abs_err": err, "atol": atol,
+           "rtol": rtol,
+           "max_err_scaled": float((diff / exp.float().abs().clamp_min(1.0)).max()),
+           "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
+           "bound_ms": bound, "bound_by": bound_by}
+    print("  " + json.dumps(row), flush=True)
+    return row
+
+
+def check_moe_paths(mixtral, gmm, card):
+    """mixtral-8x22b at full width with one layer, in f32: prefill at batch
+    2 x 512 through the kernel (moe_impl "gmm") against the plain einsum
+    path; the last-token logits must agree within 1e-4 of their largest
+    magnitude, and so must the layer's MoE output on a unit-scale input.
+    Then the serve CLI on the reduced config with --moe-impl gmm must
+    launch the kernel."""
+    import torch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import lm, moe
+    cfg = mixtral.replace(n_layers=1, param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = lm.init(cfg, gen, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, PROMPT), generator=gen,
+                                     device="cuda")}
+    out = {}
+    for impl in ("gmm", "einsum"):
+        gmm.grouped_matmul.launches = 0
+        logits, _ = lm.prefill(params, batch, cfg.replace(moe_impl=impl))
+        torch.cuda.synchronize()
+        out[impl] = (logits, gmm.grouped_matmul.launches)
+    (lg, n_gmm), (le, n_einsum) = out["gmm"], out["einsum"]
+    if (n_gmm, n_einsum) != (3, 0):
+        fail(f"full-width f32 mixtral: {n_gmm} grouped_matmul launches on the gmm path "
+             f"(expected 3), {n_einsum} on the einsum path (expected 0)")
+    if not bool(torch.isfinite(lg).all()):
+        fail("full-width f32 mixtral: gmm-path logits not finite")
+    err, scale = float((lg - le).abs().max()), float(le.abs().max())
+    # the MoE layer alone, on unit-scale input: its output is not diluted
+    # by the residual stream as the logits' is
+    mlp = {k: v[0] for k, v in params["stack"]["blocks"]["mlp"].items()}
+    h = torch.randn((2, PROMPT, cfg.d_model), generator=gen, device="cuda")
+    yg, aux, drop = moe.moe_apply(mlp, h, cfg)
+    ye, _, _ = moe.moe_apply(mlp, h, cfg.replace(moe_impl="einsum"))
+    y_err, y_scale = float((yg - ye).abs().max()), float(ye.abs().max())
+    print(f"[mixtral f32, 1 layer, full width] prefill batch 2 x {PROMPT} on {card}: "
+          f"gmm vs einsum max |dlogits| {err:.6g}, max |logits| {scale:.6g} "
+          f"({n_gmm} grouped_matmul launches on the gmm path, {n_einsum} on the einsum "
+          f"path); MoE layer max |dy| {y_err:.6g}, max |y| {y_scale:.6g}, drop fraction "
+          f"{float(drop):.6g}, aux {float(aux):.6g}", flush=True)
+    if err > 1e-4 * scale or y_err > 1e-4 * y_scale:
+        fail(f"full-width f32 mixtral: gmm vs einsum logits differ by {err} "
+             f"(max {scale}), MoE layer outputs by {y_err} (max {y_scale}), over 1e-4")
+    del params, lg, le, yg, ye
+    torch.cuda.empty_cache()
+
+    gmm.grouped_matmul.launches = 0
+    toks = serve_cli.main(["--arch", "mixtral-8x22b", "--preset", "smoke", "--moe-impl",
+                           "gmm", "--batch", "2", "--prompt-len", "32", "--new-tokens", "4"])
+    small = mixtral.reduced()
+    if gmm.grouped_matmul.launches != 3 * small.n_layers or tuple(toks.shape) != (2, 4):
+        fail(f"serve CLI, reduced mixtral, --moe-impl gmm: "
+             f"{gmm.grouped_matmul.launches} grouped_matmul launches, expected "
+             f"{3 * small.n_layers}")
+
+
 def main():
     # ---------------------------------------------------------- 1. card
     try:
@@ -347,17 +496,17 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.common.param import tree_leaves_with_path
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import bucket_reduce as br
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ref
     from repro_torch.models import lm
 
     # --------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    lib_paths = _build.build("flash_attention", "bucket_reduce")
+    lib_paths = _build.build("flash_attention", "bucket_reduce", "moe_gmm")
     print(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib_path in lib_paths:
@@ -398,6 +547,67 @@ def main():
 
     # --------------------------------------------------------- 5. serve
     cfg = get_config("yi-9b")
+    launches = serve(cfg, "serve", [("flash-attention", fa.flash_attention_bhsd,
+                                     cfg.n_layers)], card)[0]
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- 6. engine
+    br_launches = run_engine(card, torch, br)
+
+    # --------------------------------- 7. grouped_matmul against plain
+    print(f"[grouped_matmul vs plain] on {card}", flush=True)
+    for shape in GMM_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_gmm(shape, dtype, gmm, ref)
+    gmm_row = [check_gmm(shape, torch.bfloat16, gmm, ref) for shape in GMM_MIXTRAL][0]
+
+    # ------------- 8. full-width kernel path against the plain path, f32
+    mixtral = get_config("mixtral-8x22b").replace(n_layers=SERVE_MOE_LAYERS,
+                                                  moe_impl="gmm")
+    check_moe_paths(mixtral, gmm, card)
+
+    # --------------------------------------------------- 9. serve MoE
+    gmm_launches = serve(
+        mixtral, "serve mixtral",
+        [("grouped_matmul", gmm.grouped_matmul, 3 * mixtral.n_layers),
+         ("flash-attention", fa.flash_attention_bhsd, mixtral.n_layers)], card,
+        focus=("gmm_bf16_kernel", "fa_fwd_kernel", "direct_copy"))[0]
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 10. report
+    def entry(name, source, replaces, n, row):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+    kernels = [
+        entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:84", launches, main_row),
+        entry("bucket_reduce", "src/repro_torch/kernels/csrc/bucket_reduce.cu",
+              "src/repro/kernels/bucket_reduce.py:46", br_launches, br_row),
+        entry("grouped_matmul", "src/repro_torch/kernels/csrc/moe_gmm.cu",
+              "src/repro/kernels/moe_gmm.py:35", gmm_launches, gmm_row),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+def serve(cfg, label, counts, card, focus=()):
+    """One request batch through repro_torch.models.lm.generate: weights
+    drawn from a seeded generator on the card, batch BATCH, prompt PROMPT,
+    NEW_TOKENS greedy tokens. ``counts`` lists (name, wrapper, expected):
+    each wrapper's launch count is set to 0 just before a request batch and
+    must read ``expected`` just after it. Two runs must give the same
+    tokens, and a step-by-step replay must give finite logits whose greedy
+    picks are those tokens. Then a profiler trace of one prefill and three
+    decode steps. Returns the counts of the first run, in order."""
+    import torch
+    from repro_torch.common.param import tree_leaves_with_path
+    from repro_torch.models import lm
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -407,24 +617,28 @@ def main():
     n_params = sum(t.numel() for _, t in tree_leaves_with_path(params))
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                                      generator=gen, device="cuda")}
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e9:.3f} B params in {cfg.param_dtype}, init {init_s:.1f} s", flush=True)
+    extra = f", moe_impl {cfg.moe_impl}" if cfg.n_experts else ""
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params in {cfg.param_dtype}{extra}, "
+          f"init {init_s:.1f} s", flush=True)
 
     runs = []
     for _ in range(2):
-        fa.flash_attention_bhsd.launches = 0
+        for _, wrapper, _ in counts:
+            wrapper.launches = 0
         timings: dict = {}
         toks = lm.generate(params, batch, cfg, n_steps=NEW_TOKENS, timings=timings)
-        launches = fa.flash_attention_bhsd.launches
-        if launches != cfg.n_layers:
-            fail(f"flash-attention kernel launched {launches} times in a request "
-                 f"batch, expected {cfg.n_layers} (one per layer in prefill)")
-        runs.append((toks, timings, launches))
+        got = [wrapper.launches for _, wrapper, _ in counts]
+        for (name, _, expected), n in zip(counts, got):
+            if n != expected:
+                fail(f"{label}: {name} kernel launched {n} times in a request batch, "
+                     f"expected {expected}")
+        runs.append((toks, timings, got))
     (toks, _, launches), (toks2, timings, _) = runs
     if toks.shape != (BATCH, NEW_TOKENS) or not torch.equal(toks, toks2):
-        fail("two greedy runs gave different tokens")
+        fail(f"{label}: two greedy runs gave different tokens")
     if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        fail("generated token out of the vocabulary")
+        fail(f"{label}: generated token out of the vocabulary")
 
     # replay the request step by step: every logit finite, and each step's
     # greedy pick the token that generate produced
@@ -440,52 +654,29 @@ def main():
     for col, lg in enumerate(steps):
         name = "prefill" if col == 0 else f"decode step {col}"
         if lg.shape != (BATCH, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
-            fail(f"{name} logits: shape {tuple(lg.shape)} or not finite")
+            fail(f"{label}: {name} logits: shape {tuple(lg.shape)} or not finite")
         if not torch.equal(lg.argmax(-1), toks[:, col]):
-            fail(f"{name} logits disagree with the generated tokens")
+            fail(f"{label}: {name} logits disagree with the generated tokens")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prefill_ms = timings["prefill_s"] * 1e3
     decode_ms = timings["decode_s"] * 1e3 / (NEW_TOKENS - 1)
     tok_s = BATCH * NEW_TOKENS / (timings["prefill_s"] + timings["decode_s"])
-    print(f"[serve] batch {BATCH}, prompt {PROMPT}, {NEW_TOKENS} new tokens, greedy, "
+    counted = ", ".join(f"{n} {name} launches" for (name, _, _), n in zip(counts, launches))
+    print(f"[{label}] batch {BATCH}, prompt {PROMPT}, {NEW_TOKENS} new tokens, greedy, "
           f"on {card}: prefill {prefill_ms:.2f} ms, decode {decode_ms:.2f} ms/step, "
-          f"{tok_s:.1f} tokens/s, peak memory {peak_gb:.2f} GB, "
-          f"{launches} flash-attention launches", flush=True)
+          f"{tok_s:.1f} tokens/s, peak memory {peak_gb:.2f} GB, {counted}", flush=True)
     print("sample:", toks[0, :16].tolist())
     del logits, steps, caches
-    trace_serve(params, batch, cfg, lm, card)
-
-    del params, batch
-    torch.cuda.empty_cache()
-
-    # -------------------------------------------------------- 6. engine
-    br_launches = run_engine(card, torch, br)
-
-    # -------------------------------------------------------- 7. report
-    def entry(name, source, replaces, n, row):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-
-    kernels = [
-        entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:84", launches, main_row),
-        entry("bucket_reduce", "src/repro_torch/kernels/csrc/bucket_reduce.cu",
-              "src/repro/kernels/bucket_reduce.py:46", br_launches, br_row),
-    ]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}),
-          flush=True)
+    trace_serve(params, batch, cfg, lm, card, label, focus)
+    return launches
 
 
-def _trace(label, fn, card):
+def _trace(label, fn, card, focus=()):
     """Run ``fn`` under torch.profiler; print the host wall time, the summed
-    time of the CUDA kernels it ran, the device's idle share and the
-    kernels that took most of it. The profiler's own overhead is in the
-    wall time, so the idle share is an upper bound."""
+    time of the CUDA kernels it ran, the device's idle share, the kernels
+    that took most of it, and the time and share of the kernels whose
+    names hold each string of ``focus``. The profiler's own overhead is in
+    the wall time, so the idle share is an upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -509,6 +700,9 @@ def _trace(label, fn, card):
           f"device idle {max(0.0, 1 - busy_ms / wall_ms):.1%}", flush=True)
     for name, ms in top:
         print(f"    {ms:9.3f} ms  {ms / max(busy_ms, 1e-9):6.1%}  {name[:90]}")
+    for key in focus:
+        ms = sum(t for name, t in by_name.items() if key in name)
+        print(f"    {key}: {ms:.3f} ms, {ms / busy_ms:.1%} of kernel time")
 
 
 TRANSIENT_PREFIXES = ("_spill/", "_payload/", "_exchange/", "_result/",
@@ -619,7 +813,7 @@ def run_engine(card, torch, br):
     return total
 
 
-def trace_serve(params, batch, cfg, lm, card):
+def trace_serve(params, batch, cfg, lm, card, label, focus=()):
     """Where the time of one request batch goes: one prefill, then three
     decode steps, each window traced on its own."""
     kv_len = PROMPT + 4
@@ -636,8 +830,8 @@ def trace_serve(params, batch, cfg, lm, card):
                                        kv_len=kv_len)
             tok = logits.argmax(-1)[:, None]
 
-    _trace("prefill", prefill, card)
-    _trace("3 decode steps", decode, card)
+    _trace(f"{label} prefill", prefill, card, focus)
+    _trace(f"{label} 3 decode steps", decode, card, focus)
 
 
 if __name__ == "__main__":

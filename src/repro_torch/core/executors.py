@@ -147,11 +147,12 @@ class FlintConfig:
     # sums through the bucket_reduce kernel on ``vector_device`` — see
     # kernels.ops.grouped_reduce; "numpy" keeps them on the host). The
     # device is the card unless the caller asks for "cpu"; without a card
-    # validate() raises rather than carry on on the CPU.
+    # validate() raises rather than carry on on the CPU. No environment
+    # variable is read here: the reference's FLINT_VECTOR_BACKEND names
+    # its own backends ("numpy", "jax"), and a caller who wants the host
+    # passes vector_backend="numpy".
     vectorize: bool = True
-    vector_backend: str = dataclasses.field(
-        default_factory=lambda: os.environ.get("FLINT_VECTOR_BACKEND",
-                                               "torch"))
+    vector_backend: str = "torch"
     vector_device: str = "cuda"
     vector_batch_rows: int = 8192  # rows per column batch in fused ops
     lease_safety: float = 0.8  # stop ingesting at this fraction of the lease

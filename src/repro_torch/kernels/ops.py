@@ -19,6 +19,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.bucket_reduce import bucket_reduce as _bucket_reduce
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.moe_gmm import grouped_matmul as _grouped_matmul
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -37,6 +38,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     out = flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal, window=int(window))
     return out.transpose(1, 2)
+
+
+def grouped_matmul(x, w, sizes=None):
+    """x: (E, T, D) @ w: (E, D, F) -> (E, T, F), one matmul per expert.
+    ``sizes`` is accepted for the reference's signature and ignored, as
+    there (rows past a group's size are zero in the dispatch buffers).
+
+    A CUDA tensor launches the kernel for every shape, ragged ones
+    included, or raises ``KernelError``: the reference's branch of shapes
+    that are not multiples of 8 to its oracle has no counterpart on the
+    card. Forward only, as ``flash_attention``."""
+    del sizes
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "grouped_matmul has no backward yet: it comes with the training "
+            "slice (ROADMAP queue 1: training step)")
+    if x.device.type == "cpu":
+        return ref.grouped_matmul_ref(x, w)
+    return _grouped_matmul(x, w)
 
 
 def bucket_reduce(values, bucket_ids, n_buckets: int):

@@ -47,3 +47,10 @@ def bucket_reduce_ref(values, bucket_ids, n_buckets: int):
     out = torch.zeros((n_buckets, values.shape[1]), dtype=acc, device=values.device)
     out.index_add_(0, ids[keep], values[keep].to(acc))
     return out.to(values.dtype)
+
+
+def grouped_matmul_ref(x, w):
+    """x: (E, T, D), w: (E, D, F) -> (E, T, F): per-expert matmul with an
+    f32 accumulator over D, cast once to x's dtype, as the TPU kernel
+    computes it (``repro.kernels.moe_gmm._kernel``)."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)

@@ -3,8 +3,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+        --preset smoke --moe-impl gmm [--device cpu]
 
-Weights are random, drawn from ``--seed``.
+Weights are random, drawn from ``--seed``. ``--moe-impl`` sets the
+config's ``moe_impl`` (default: the config's own, "einsum"); "gmm" runs the
+MoE expert products of prefill through the grouped-matmul kernel on the
+card, or its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -28,12 +33,16 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--moe-impl", choices=["einsum", "gmm"], default=None,
+                    help="MoE expert path (default: the config's moe_impl)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.preset == "smoke":
         cfg = cfg.reduced()
+    if args.moe_impl is not None:
+        cfg = cfg.replace(moe_impl=args.moe_impl)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = lm.init(cfg, gen, device=device)
@@ -47,7 +56,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     toks = lm.generate(params, batch, cfg, n_steps=args.new_tokens, timings=timings)
     dt = time.perf_counter() - t0
-    print(f"arch={cfg.name} generated {tuple(toks.shape)} in {dt:.2f}s "
+    print(f"arch={cfg.name} moe_impl={cfg.moe_impl if cfg.n_experts else '-'} generated {tuple(toks.shape)} in {dt:.2f}s "
           f"({args.batch * args.new_tokens / dt:.0f} tok/s)")
     print("sample:", toks[0, :16].tolist())
     decode_steps = max(args.new_tokens - 1, 1)

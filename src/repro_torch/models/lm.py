@@ -67,10 +67,12 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
 
 
 def hidden_states(params, batch, cfg: ModelConfig, attn_impl="auto"):
-    """Full-sequence hidden states. Returns (h, n_prefix)."""
+    """Full-sequence hidden states. Returns (h, n_prefix, aux, drop): the
+    MoE aux loss and drop fraction (0-d f32 tensors, zero for a dense
+    stack)."""
     x, pos, n_prefix = _embed_inputs(params, batch, cfg)
-    x = tfm.apply_stack(params["stack"], x, pos, cfg, attn_impl=attn_impl)
-    return rmsnorm(params["ln_f"], x, cfg.norm_eps), n_prefix
+    x, aux, drop = tfm.apply_stack(params["stack"], x, pos, cfg, attn_impl=attn_impl)
+    return rmsnorm(params["ln_f"], x, cfg.norm_eps), n_prefix, aux, drop
 
 
 def _unembed_params(params, cfg: ModelConfig):
@@ -80,9 +82,10 @@ def _unembed_params(params, cfg: ModelConfig):
 
 
 def forward(params, batch, cfg: ModelConfig, attn_impl="auto"):
-    """Full logits (B, S, V) and n_prefix — small models only."""
-    h, n_prefix = hidden_states(params, batch, cfg, attn_impl)
-    return unembed(_unembed_params(params, cfg), h, cfg), n_prefix
+    """Full logits (B, S, V), n_prefix, aux and drop, as ``hidden_states``
+    — small models only."""
+    h, n_prefix, aux, drop = hidden_states(params, batch, cfg, attn_impl)
+    return unembed(_unembed_params(params, cfg), h, cfg), n_prefix, aux, drop
 
 
 # ------------------------------------------------------------- serving
@@ -165,16 +168,21 @@ def generate(params, batch, cfg: ModelConfig, n_steps: int, *,
 
 
 def _grow_caches(caches, cfg: ModelConfig, kv_len: int):
-    """Pad the (L, B, S, K, D) attention caches along their time axis up to
-    kv_len (no-op for rolling SWA windows already at full size)."""
+    """Pad the attention caches along their time axis up to kv_len: axis 2
+    of the stacked (L, B, S, K, D) caches, axis 1 of the unstacked
+    (B, S, K, D) caches of dense prefix layers (no-op for rolling SWA
+    windows already at full size)."""
     tgt = min(kv_len, cfg.sliding_window) if cfg.sliding_window else kv_len
 
-    def grow(a):
-        s = a.shape[2]
+    def grow(a, axis):
+        s = a.shape[axis]
         if s >= tgt:
             return a
-        out = a.new_zeros(a.shape[:2] + (tgt,) + a.shape[3:])
-        out[:, :, :s] = a
+        out = a.new_zeros(a.shape[:axis] + (tgt,) + a.shape[axis + 1:])
+        out.narrow(axis, 0, s).copy_(a)
         return out
 
-    return {"blocks": {k: grow(a) for k, a in caches["blocks"].items()}}
+    out = {"blocks": {k: grow(a, 2) for k, a in caches["blocks"].items()}}
+    if "prefix" in caches:
+        out["prefix"] = [{k: grow(a, 1) for k, a in c.items()} for c in caches["prefix"]]
+    return out

@@ -1,14 +1,15 @@
 """Block wiring and layer-stack assembly (torch counterpart of
-``repro.models.transformer``), dense stack.
+``repro.models.transformer``): the dense and MoE GQA stacks.
 
 The JAX package runs one ``lax.scan`` over stacked layer params; here a
 Python loop walks the layer axis, taking each layer's params as views of
-the stacked tensors. Remat and sharding constraints have no counterpart in
-serving and are left out.
+the stacked tensors. Dense prefix layers (``first_dense_layers``) run
+unrolled before the loop, as in the reference. Remat and sharding
+constraints have no counterpart in serving and are left out.
 
 Every family's schema is here, so parameter counts agree for every arch.
-Running a stack other than the dense one (MoE, MLA, zamba, xLSTM,
-encoder-decoder) raises until its slice.
+Running another stack (MLA, zamba, xLSTM, encoder-decoder) raises until
+its slice.
 """
 
 from __future__ import annotations
@@ -27,13 +28,11 @@ from repro_torch.models.layers import rmsnorm, rmsnorm_schema, swiglu, swiglu_sc
 _NOT_DENSE = {"xlstm": "xLSTM", "zamba": "SSM"}
 
 
-def _check_dense(cfg: ModelConfig):
-    """Raise for any stack this slice does not run."""
+def _check_ported(cfg: ModelConfig):
+    """Raise for any stack the port does not run yet."""
     kind = stack_config(cfg)["kind"]
     if kind in _NOT_DENSE:
         raise attn._not_ported(f"the {kind} stack", _NOT_DENSE[kind])
-    if cfg.n_experts:
-        raise attn._not_ported("the MoE stack", "MoE")
     if cfg.attn_type == "mla":
         raise attn._not_ported("the MLA stack", "MLA")
     if cfg.is_enc_dec:
@@ -57,25 +56,34 @@ def decoder_block_schema(cfg: ModelConfig, *, use_moe: bool,
 
 
 def decoder_block_apply(params, x, positions, cfg: ModelConfig, *,
-                        causal: bool = True, attn_impl: str = "auto"):
-    """Dense GQA block. Returns (x, kv_for_cache) with kv_for_cache =
-    {"self": (k, v)}."""
+                        use_moe: bool, causal: bool = True,
+                        attn_impl: str = "auto"):
+    """GQA block, dense or MoE. Returns (x, kv_for_cache, aux_loss,
+    drop_frac) with kv_for_cache = {"self": (k, v)}; aux_loss and
+    drop_frac are 0-d f32 tensors for an MoE block, 0.0 for a dense one."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     a, kv_self = attn.gqa_attend(params["attn"], h, cfg, positions=positions,
                                  causal=causal, attn_impl=attn_impl)
     x = x + a
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + swiglu(params["mlp"], h), {"self": kv_self}
+    if use_moe:
+        m, aux, drop = moe_mod.moe_apply(params["mlp"], h, cfg)
+        aux, drop = aux.float(), drop.float()
+    else:
+        m, aux, drop = swiglu(params["mlp"], h), 0.0, 0.0
+    return x + m, {"self": kv_self}, aux, drop
 
 
 def decoder_block_decode(params, x, cache, pos: int, cfg: ModelConfig, *,
-                         kv_len: int):
+                         use_moe: bool, kv_len: int):
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     a, new_cache = attn.gqa_decode(params["attn"], h, cache, pos, cfg,
                                    kv_len=kv_len)
     x = x + a
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + swiglu(params["mlp"], h), new_cache
+    m = (moe_mod.moe_decode(params["mlp"], h, cfg) if use_moe
+         else swiglu(params["mlp"], h))
+    return x + m, new_cache
 
 
 def mamba_block_schema(cfg: ModelConfig) -> dict:
@@ -140,23 +148,38 @@ def _layer(stacked, i: int):
 
 
 def apply_stack(params, x, positions, cfg: ModelConfig, *, attn_impl="auto"):
-    """Full-sequence pass through the dense layer stack. Returns x."""
-    _check_dense(cfg)
-    for i in range(stack_config(cfg)["scan_len"]):
-        x, _ = decoder_block_apply(_layer(params["blocks"], i), x, positions,
-                                   cfg, attn_impl=attn_impl)
-    return x
+    """Full-sequence pass through the layer stack. Returns (x, aux, drop):
+    the MoE aux losses summed over the layers, and their drop fractions
+    averaged over the looped layers, as the reference's ``_scan_apply``
+    does (dense prefix layers add nothing to either)."""
+    _check_ported(cfg)
+    for lp in params.get("prefix", []):
+        x, _, _, _ = decoder_block_apply(lp, x, positions, cfg, use_moe=False,
+                                         attn_impl=attn_impl)
+    n = stack_config(cfg)["scan_len"]
+    use_moe = bool(cfg.n_experts)
+    aux = drop = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        x, _, a, d = decoder_block_apply(_layer(params["blocks"], i), x, positions,
+                                         cfg, use_moe=use_moe, attn_impl=attn_impl)
+        aux, drop = aux + a, drop + d
+    return x, aux, drop / max(n, 1)
 
 
 # --------------------------------------------------------------- caches
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
-    _check_dense(cfg)
+    _check_ported(cfg)
+    sc = stack_config(cfg)
     one = attn.gqa_init_cache(cfg, batch, max_len, dtype, device)
-    n = stack_config(cfg)["scan_len"]
-    return {"blocks": {k: a[None].repeat((n,) + (1,) * a.dim())
-                       for k, a in one.items()}}
+    out = {}
+    if sc["prefix"]:
+        out["prefix"] = [attn.gqa_init_cache(cfg, batch, max_len, dtype, device)
+                         for _ in range(sc["prefix"])]
+    out["blocks"] = {k: a[None].repeat((sc["scan_len"],) + (1,) * a.dim())
+                     for k, a in one.items()}
+    return out
 
 
 def prefill_stack(params, x, positions, cfg: ModelConfig, *, attn_impl="auto"):
@@ -164,7 +187,7 @@ def prefill_stack(params, x, positions, cfg: ModelConfig, *, attn_impl="auto"):
 
     Returns (x, caches) with the structure init_stack_cache produces (SWA
     archs get a rolling window-sized cache)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     s = x.shape[1]
 
     def roll(k):  # window-slice for SWA caches
@@ -175,14 +198,23 @@ def prefill_stack(params, x, positions, cfg: ModelConfig, *, attn_impl="auto"):
             return k[:, s - w:]
         return k
 
+    prefix_caches = []
+    for lp in params.get("prefix", []):
+        x, kv, _, _ = decoder_block_apply(lp, x, positions, cfg, use_moe=False,
+                                          attn_impl=attn_impl)
+        prefix_caches.append(_kv_to_cache(kv["self"], cfg, roll))
+    use_moe = bool(cfg.n_experts)
     ks, vs = [], []
     for i in range(stack_config(cfg)["scan_len"]):
-        x, kv = decoder_block_apply(_layer(params["blocks"], i), x, positions,
-                                    cfg, attn_impl=attn_impl)
+        x, kv, _, _ = decoder_block_apply(_layer(params["blocks"], i), x, positions,
+                                          cfg, use_moe=use_moe, attn_impl=attn_impl)
         c = _kv_to_cache(kv["self"], cfg, roll)
         ks.append(c["k"])
         vs.append(c["v"])
-    return x, {"blocks": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    out = {"blocks": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    if prefix_caches:
+        out["prefix"] = prefix_caches
+    return x, out
 
 
 def _kv_to_cache(kv_self, cfg: ModelConfig, roll):
@@ -193,9 +225,13 @@ def _kv_to_cache(kv_self, cfg: ModelConfig, roll):
 def decode_stack(params, x, caches, pos: int, cfg: ModelConfig, *, kv_len: int):
     """One-token pass; returns (x, caches). The caches are updated in place
     (see ``attention.gqa_decode``)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
+    for lp, c in zip(params.get("prefix", []), caches.get("prefix", [])):
+        x, _ = decoder_block_decode(lp, x, c, pos, cfg, use_moe=False, kv_len=kv_len)
+    use_moe = bool(cfg.n_experts)
     blocks = caches["blocks"]
     for i in range(stack_config(cfg)["scan_len"]):
         x, _ = decoder_block_decode(_layer(params["blocks"], i), x,
-                                    _layer(blocks, i), pos, cfg, kv_len=kv_len)
+                                    _layer(blocks, i), pos, cfg, use_moe=use_moe,
+                                    kv_len=kv_len)
     return x, caches

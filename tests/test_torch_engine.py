@@ -251,6 +251,25 @@ def test_config_backends():
     assert FlintConfig().vector_device == "cuda"
 
 
+@pytest.mark.parametrize("value", ["jax", "numpy", "torch"])
+def test_reference_vector_backend_variable_leaves_the_port_on_torch(value, monkeypatch):
+    """FLINT_VECTOR_BACKEND names the reference's backends ("numpy",
+    "jax"). The port reads no variable for its own: whatever the value, its
+    config builds and stays on "torch", while the reference's config takes
+    the value and checks it as before."""
+    monkeypatch.setenv("FLINT_VECTOR_BACKEND", value)
+    port = FlintConfig(vector_device="cpu")
+    assert port.vector_backend == "torch"
+    port.validate()
+    ref = RefConfig()
+    assert ref.vector_backend == value
+    if value == "torch":
+        with pytest.raises(ValueError, match="'numpy' or 'jax'"):
+            ref.validate()
+    else:
+        ref.validate()
+
+
 # ------------------------------------------------------------ (d) data
 
 

@@ -43,6 +43,27 @@ def test_serve_smoke_on_cpu_loads_no_jax():
     assert "prefill" in out.stdout and "ms/step" in out.stdout
 
 
+def test_moe_serve_smoke_on_cpu_loads_no_jax():
+    """The reduced mixtral through the serve CLI with --moe-impl gmm (the
+    grouped matmul's plain version on the CPU) loads no jax, jaxlib or
+    repro module."""
+    prog = (
+        "import sys\n"
+        "from repro_torch.launch import serve\n"
+        "toks = serve.main(['--arch', 'mixtral-8x22b', '--preset', 'smoke', '--moe-impl',\n"
+        "                   'gmm', '--device', 'cpu', '--batch', '2', '--prompt-len', '32',\n"
+        "                   '--new-tokens', '4'])\n"
+        "assert tuple(toks.shape) == (2, 4), toks.shape\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ISOLATED')\n")
+    out = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         timeout=300)
+    assert out.returncode == 0 and "ISOLATED" in out.stdout, out.stderr
+    assert "moe_impl=gmm" in out.stdout
+
+
 def test_engine_on_cpu_loads_no_jax_and_numpy_route_no_torch():
     """The port's engine runs a SQL query on the CPU (torch route, plain
     version) with no jax, jaxlib or repro module loaded; an engine on the

@@ -67,8 +67,10 @@ def test_forward_matches_jax(name):
     jcfg, jparams, tcfg, tparams = _models(name)
     toks = _tokens(jcfg, 1)
     jlogits, _, _, _ = jlm.forward(jparams, {"tokens": jnp.asarray(toks)}, jcfg)
-    tlogits, n_prefix = tlm.forward(tparams, {"tokens": torch.from_numpy(toks)}, tcfg)
+    tlogits, n_prefix, aux, drop = tlm.forward(tparams, {"tokens": torch.from_numpy(toks)},
+                                               tcfg)
     assert n_prefix == 0 and tlogits.shape == (BATCH, PROMPT, tcfg.vocab_size)
+    assert float(aux) == 0.0 and float(drop) == 0.0
     _close(tlogits, jlogits)
 
 
@@ -128,7 +130,7 @@ def test_prefill_decode_matches_forward(name):
     _, _, cfg, params = _models(name)
     S, extra = PROMPT, 3  # a multiple of the SWA window, as prefill requires
     toks = torch.from_numpy(_tokens(cfg, 4, S + extra))
-    logits_full, _ = tlm.forward(params, {"tokens": toks}, cfg)
+    logits_full, _, _, _ = tlm.forward(params, {"tokens": toks}, cfg)
     logits_p, caches = tlm.prefill(params, {"tokens": toks[:, :S]}, cfg)
     kv_len = S + extra
     caches = tlm._grow_caches(caches, cfg, kv_len)
