@@ -7,15 +7,23 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 
 1. Device and card: a CUDA device of capability (9, 0); prints its name and
    power limit as nvidia-smi reports them.
-2. Build: compiles the three kernels from src/repro_torch/kernels/csrc/
-   for sm_90a, one nvcc per source, started together, and prints what
-   ptxas reports for each.
-3. Flash attention against plain: the kernel against its plain PyTorch
-   version (repro_torch.kernels.ref) on the five shapes of the JAX
-   package's flash-attention sweep plus yi-9b's prefill shape, in f32
-   (2e-5) and bf16 (2e-2); per shape the kernel's, the plain version's and
-   one PyTorch call's (scaled_dot_product_attention, a yardstick the port
-   never calls) times, and the least time the card could take.
+2. Build: compiles the three kernel sources from
+   src/repro_torch/kernels/csrc/ (with their shared header hopper.cuh) for
+   sm_90a, one nvcc per source, started together, and prints what ptxas
+   reports for each kernel.
+3. Flash attention against plain: the kernel that the wrapper's variant
+   rule picks (fa_fwd_wgmma_kernel for bf16 with head dim 64 or 128,
+   fa_fwd_kernel otherwise) against its plain PyTorch version
+   (repro_torch.kernels.ref) on the five shapes of the JAX package's
+   flash-attention sweep, three shapes at the edges of the wgmma kernel's
+   tiles (Skv under one 128-query tile, Sq < Skv, a window), yi-9b's
+   prefill shape and mixtral-8x22b's (window 4096), in f32 (2e-5) and
+   bf16 (2e-2); two launches must give the same bits, and every bf16 shape
+   with head dim 64 or 128 must take the wgmma variant. Per shape the
+   kernel's, the plain version's and one PyTorch call's
+   (scaled_dot_product_attention, a yardstick the port never calls) times,
+   and the least time the card could take; at the two serving shapes also
+   the earlier CUDA-core kernel's time on the same inputs.
 4. bucket_reduce against plain: the kernel against bucket_reduce_ref on
    the JAX package's bucket_reduce sweep (n <= 700, p in {4, 16, 33},
    d in {8, 64}, ids of -1 and out of range) in f32 and bf16, on the
@@ -28,7 +36,8 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    drawn from a seeded generator on the card, batch 8, prompt 512, 32 new
    tokens, greedy, through repro_torch.models.lm.generate. The kernel's
    launch count, set to 0 before each request batch, must read exactly 48
-   after it (one per layer, all in prefill), two runs must give the same
+   after it (one per layer, all in prefill), all 48 on
+   fa_fwd_wgmma_kernel; two runs must give the same
    tokens, and a step-by-step replay must give finite logits whose greedy
    picks are those tokens; a reduced yi-9b in f32 (phase 3) checks the
    kernel path against the plain path. A profiler trace of one prefill and
@@ -41,13 +50,19 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    bucket_reduce's launch count must rise by exactly the number of
    grouped_reduce calls that returned an array (more than 0). A profiler
    trace of one torch-route query gives the device's busy time.
-7. grouped_matmul against plain: the kernel against grouped_matmul_ref
-   on the four shapes of the JAX package's grouped-matmul sweep and two
-   ragged shapes, in f32 (1e-4 * d) and bf16 (1e-5 * d plus one bf16 ulp),
-   then on mixtral-8x22b's two prefill products in bf16; two launches must
-   give the same bits. Per shape the kernel's, the plain version's and one
+7. grouped_matmul against plain: the kernel that the wrapper's variant
+   rule picks (gmm_wgmma_kernel for bf16 operands that TMA can describe,
+   gmm_bf16_kernel for other bf16 layouts, gmm_f32_kernel for f32) against
+   grouped_matmul_ref on the four shapes of the JAX package's
+   grouped-matmul sweep, two ragged shapes and three at the edges of the
+   wgmma kernel's ring (a D that is not a multiple of 64 x 4 stages, a T
+   under one tile, E = 1), in f32 (1e-4 * d) and bf16 (1e-5 * d plus one
+   bf16 ulp), then on mixtral-8x22b's two prefill products in bf16; two
+   launches must give the same bits, and each shape must take the variant
+   the rule names. Per shape the kernel's, the plain version's and one
    torch.bmm's times (a yardstick the port never calls), and the least
-   time the card could take.
+   time the card could take; at mixtral's shapes also the earlier
+   mma.sync kernel's time on the same inputs.
 8. MoE paths: mixtral-8x22b at full width with one layer in f32; prefill
    at batch 2 x 512 through the kernel (moe_impl "gmm") against the plain
    einsum path, within 1e-4 of the largest logit, and the layer's MoE
@@ -56,10 +71,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 9. Serve MoE: mixtral-8x22b at full width with 8 of its 56 layers (all 56
    do not fit on one card), bf16, moe_impl "gmm", with the gates of phase
    5: exactly 24 grouped_matmul launches (three per layer, all in prefill;
-   decode takes the einsum path) and 8 flash-attention launches per
-   request batch, identical tokens twice, a replay that agrees, and a
-   trace of prefill and three decode steps.
-10. Prints the kernels line, then the device line last.
+   decode takes the einsum path), all on gmm_wgmma_kernel, and 8
+   flash-attention launches, all on fa_fwd_wgmma_kernel, per request
+   batch, identical tokens twice, a replay that agrees, and a trace of
+   prefill and three decode steps.
+10. Prints the kernels line (each entry names the variant its times were
+    measured on), then the device line last.
 """
 
 from __future__ import annotations
@@ -77,7 +94,10 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 # (b, h, kv heads, sq, skv, d, causal, window): tests/test_kernels.py's
-# flash-attention sweep, then yi-9b's prefill (the serve phase's shape)
+# flash-attention sweep; shapes at the edges of the wgmma kernel's tiles
+# (128 queries, 64 keys): Skv under one query tile, Sq < Skv with ragged
+# lengths, a window narrower than a key tile; then yi-9b's prefill (the
+# serve phase's shape) and mixtral-8x22b's (phase 9's)
 SWEEP = [
     (2, 4, 2, 128, 128, 64, True, 0),
     (1, 2, 2, 256, 256, 32, True, 64),
@@ -85,7 +105,13 @@ SWEEP = [
     (1, 8, 2, 128, 384, 64, True, 0),
     (1, 2, 1, 64, 64, 128, True, 0),
 ]
+FA_EDGES = [
+    (1, 4, 2, 100, 100, 128, True, 0),
+    (1, 4, 2, 70, 300, 128, True, 0),
+    (1, 4, 1, 200, 200, 64, True, 48),
+]
 YI_PREFILL = (8, 32, 4, 512, 512, 128, True, 0)
+MIXTRAL_PREFILL = (8, 48, 8, 512, 512, 128, True, 4096)
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 BATCH, PROMPT, NEW_TOKENS = 8, 512, 32
 
@@ -111,6 +137,10 @@ ENGINE_ROWS, ENGINE_PARTS = 2_000_000, 8
 # gate and up, then down
 GMM_SWEEP = [(4, 64, 32, 48), (2, 128, 128, 128), (8, 16, 64, 8), (1, 256, 512, 128),
              (3, 100, 72, 40), (2, 37, 50, 13)]
+# at the edges of the wgmma kernel's ring (128 x 256 tiles, K step 64, 4
+# stages): D = 4160 = 16.25 x 256 with E = 1 and T = 300; T = 1 under one
+# tile with E = 1; T, D and F all ragged against the tile
+GMM_EDGES = [(1, 300, 4160, 512), (1, 1, 64, 8), (2, 130, 320, 264)]
 GMM_MIXTRAL = [(8, 1312, 6144, 16384), (8, 1312, 16384, 6144)]
 # |kernel - plain| <= atol + rtol * |plain|. f32: the JAX package's sweep
 # bound (1e-4 * d, 1e-4). bf16: both versions sum exact bf16 products in f32
@@ -181,10 +211,16 @@ def check_kernel(case, dtype, fa, ref):
     def plain():
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
-    out = kernel().transpose(1, 2)
+    variant = fa.variant(qt, kt, vt)
+    wants_wgmma = dtype == torch.bfloat16 and d in fa.WGMMA_HEAD_DIMS
+    if (variant == fa.WGMMA) != wants_wgmma:
+        fail(f"flash attention {case} {name}: the variant rule picked {variant}")
+    out, out2 = kernel().transpose(1, 2), kernel().transpose(1, 2)
     torch.cuda.synchronize()
     exp = plain()
     torch.cuda.synchronize()
+    if not torch.equal(out, out2):
+        fail(f"flash attention {case} {name}: two launches differ")
     tol = TOLS[name]
     err = float((out.float() - exp.float()).abs().max())
     if not torch.allclose(out.float(), exp.float(), atol=tol, rtol=tol):
@@ -209,11 +245,32 @@ def check_kernel(case, dtype, fa, ref):
     t_plain = time_ms(plain, iters=5)
     t_lib = time_ms(library)
     bound, bound_by = attention_bound(case, name, q.element_size())
-    row = {"case": list(case), "dtype": name, "max_abs_err": err, "tol": tol,
-           "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
-           "bound_ms": bound, "bound_by": bound_by}
+    row = {"case": list(case), "dtype": name, "variant": variant, "max_abs_err": err,
+           "tol": tol, "bit_identical": True, "ms": t_kernel, "plain_ms": t_plain,
+           "library_ms": t_lib, "bound_ms": bound, "bound_by": bound_by}
+    if variant == fa.WGMMA and case in (YI_PREFILL, MIXTRAL_PREFILL):
+        earlier = earlier_flash_attention(fa, qt, kt, vt, causal, window)
+        row["earlier_variant"] = fa.CUDA_CORES
+        row["earlier_max_abs_err"] = float(
+            (earlier().transpose(1, 2).float() - exp.float()).abs().max())
+        row["earlier_ms"] = time_ms(earlier)
     print("  " + json.dumps(row), flush=True)
     return row
+
+
+def earlier_flash_attention(fa, qt, kt, vt, causal, window):
+    """The earlier CUDA-core kernel (fa_fwd_kernel) on the same bf16
+    inputs, through the wrapper's own C call (``_launch``), so its time
+    stands beside the wgmma kernel's in one run. No launch is counted, and
+    no path of the port picks this kernel for these inputs."""
+    import torch
+    b, h, sq, d = qt.shape
+    out = torch.empty((b, sq, h, d), dtype=qt.dtype, device="cuda").transpose(1, 2)
+
+    def run():
+        fa._launch(fa.CUDA_CORES, qt, kt, vt, out, causal, window)
+        return out
+    return run
 
 
 def bucket_inputs(n, p, d, dtype, gen):
@@ -366,9 +423,10 @@ def gmm_bound(e, t, d, f, dtype_name, itemsize):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_gmm(shape, dtype, gmm, ref):
+def check_gmm(shape, dtype, gmm, ref, expected):
     """grouped_matmul's kernel against its plain version on one shape and
-    dtype; returns the row of numbers for it."""
+    dtype, which must take the variant ``expected``; returns the row of
+    numbers for it."""
     import torch
     e, t, d, f = shape
     name = str(dtype).replace("torch.", "")
@@ -382,6 +440,10 @@ def check_gmm(shape, dtype, gmm, ref):
     def plain():
         return ref.grouped_matmul_ref(x, w)
 
+    variant = gmm.variant(x, w)
+    if variant != expected:
+        fail(f"grouped_matmul {shape} {name}: the variant rule picked {variant}, "
+             f"expected {expected}")
     out, out2 = kernel(), kernel()
     torch.cuda.synchronize()
     exp = plain()
@@ -407,13 +469,32 @@ def check_gmm(shape, dtype, gmm, ref):
     t_lib = time_ms(library, iters=5 if big else 50)
     bound, bound_by = gmm_bound(e, t, d, f, name, x.element_size())
     # max_err_scaled: max |kernel - plain| / max(|plain|, 1)
-    row = {"shape": [e, t, d, f], "dtype": name, "max_abs_err": err, "atol": atol,
-           "rtol": rtol,
+    row = {"shape": [e, t, d, f], "dtype": name, "variant": variant, "max_abs_err": err,
+           "atol": atol, "rtol": rtol,
            "max_err_scaled": float((diff / exp.float().abs().clamp_min(1.0)).max()),
-           "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
+           "bit_identical": True, "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
            "bound_ms": bound, "bound_by": bound_by}
+    if shape in GMM_MIXTRAL:
+        earlier = earlier_grouped_matmul(gmm, x, w)
+        row["earlier_variant"] = gmm.MMA_SYNC
+        row["earlier_max_abs_err"] = float((earlier().float() - exp.float()).abs().max())
+        row["earlier_ms"] = time_ms(earlier, iters=5)
     print("  " + json.dumps(row), flush=True)
     return row
+
+
+def earlier_grouped_matmul(gmm, x, w):
+    """The earlier mma.sync kernel (gmm_bf16_kernel) on the same bf16
+    inputs, through the wrapper's own C call (``_launch``), so its time
+    stands beside the wgmma kernel's in one run. No launch is counted, and
+    no path of the port picks this kernel for these inputs."""
+    import torch
+    out = torch.empty((x.shape[0], x.shape[1], w.shape[2]), dtype=x.dtype, device="cuda")
+
+    def run():
+        gmm._launch(gmm.MMA_SYNC, x, w, out)
+        return out
+    return run
 
 
 def check_moe_paths(mixtral, gmm, card):
@@ -424,6 +505,7 @@ def check_moe_paths(mixtral, gmm, card):
     Then the serve CLI on the reduced config with --moe-impl gmm must
     launch the kernel."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import lm, moe
     cfg = mixtral.replace(n_layers=1, param_dtype="float32", compute_dtype="float32")
@@ -433,7 +515,7 @@ def check_moe_paths(mixtral, gmm, card):
                                      device="cuda")}
     out = {}
     for impl in ("gmm", "einsum"):
-        gmm.grouped_matmul.launches = 0
+        _build.reset_launches(gmm.grouped_matmul)
         logits, _ = lm.prefill(params, batch, cfg.replace(moe_impl=impl))
         torch.cuda.synchronize()
         out[impl] = (logits, gmm.grouped_matmul.launches)
@@ -462,7 +544,7 @@ def check_moe_paths(mixtral, gmm, card):
     del params, lg, le, yg, ye
     torch.cuda.empty_cache()
 
-    gmm.grouped_matmul.launches = 0
+    _build.reset_launches(gmm.grouped_matmul)
     toks = serve_cli.main(["--arch", "mixtral-8x22b", "--preset", "smoke", "--moe-impl",
                            "gmm", "--batch", "2", "--prompt-len", "32", "--new-tokens", "4"])
     small = mixtral.reduced()
@@ -511,15 +593,16 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib_path in lib_paths:
         for line in lib_path.with_suffix(".log").read_text().splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if any(key in line for key in ("Compiling entry", "registers", "spill", "warning")):
                 print(f"  ptxas {lib_path.stem.split('-')[0]}: " + line.strip())
 
     # ----------------------------- 3. flash attention against plain
     print(f"[kernel vs plain] on {card}", flush=True)
     rows = [check_kernel(case, dtype, fa, ref)
-            for case in SWEEP + [YI_PREFILL]
+            for case in SWEEP + FA_EDGES + [YI_PREFILL, MIXTRAL_PREFILL]
             for dtype in (torch.float32, torch.bfloat16)]
-    main_row = rows[-1]  # yi-9b prefill, bf16: the shape the serve phase runs
+    # yi-9b prefill, bf16: the shape the serve phase runs
+    main_row = next(r for r in rows if r["case"] == list(YI_PREFILL) and r["dtype"] == "bfloat16")
 
     # on a small input, the kernel path of the model against the plain path
     small = get_config("yi-9b").reduced(n_kv_heads=2)
@@ -548,7 +631,8 @@ def main():
     # --------------------------------------------------------- 5. serve
     cfg = get_config("yi-9b")
     launches = serve(cfg, "serve", [("flash-attention", fa.flash_attention_bhsd,
-                                     cfg.n_layers)], card)[0]
+                                     cfg.n_layers, fa.WGMMA)], card,
+                     focus=(fa.WGMMA,))[0]
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------- 6. engine
@@ -556,10 +640,14 @@ def main():
 
     # --------------------------------- 7. grouped_matmul against plain
     print(f"[grouped_matmul vs plain] on {card}", flush=True)
-    for shape in GMM_SWEEP:
-        for dtype in (torch.float32, torch.bfloat16):
-            check_gmm(shape, dtype, gmm, ref)
-    gmm_row = [check_gmm(shape, torch.bfloat16, gmm, ref) for shape in GMM_MIXTRAL][0]
+    for shape in GMM_SWEEP + GMM_EDGES:
+        # inputs from torch.randn are contiguous: TMA can describe them
+        # exactly when D and F are multiples of 8
+        tma = shape[2] % 8 == 0 and shape[3] % 8 == 0
+        check_gmm(shape, torch.float32, gmm, ref, gmm.F32)
+        check_gmm(shape, torch.bfloat16, gmm, ref, gmm.WGMMA if tma else gmm.MMA_SYNC)
+    gmm_row = [check_gmm(shape, torch.bfloat16, gmm, ref, gmm.WGMMA)
+               for shape in GMM_MIXTRAL][0]
 
     # ------------- 8. full-width kernel path against the plain path, f32
     mixtral = get_config("mixtral-8x22b").replace(n_layers=SERVE_MOE_LAYERS,
@@ -569,25 +657,28 @@ def main():
     # --------------------------------------------------- 9. serve MoE
     gmm_launches = serve(
         mixtral, "serve mixtral",
-        [("grouped_matmul", gmm.grouped_matmul, 3 * mixtral.n_layers),
-         ("flash-attention", fa.flash_attention_bhsd, mixtral.n_layers)], card,
-        focus=("gmm_bf16_kernel", "fa_fwd_kernel", "direct_copy"))[0]
+        [("grouped_matmul", gmm.grouped_matmul, 3 * mixtral.n_layers, gmm.WGMMA),
+         ("flash-attention", fa.flash_attention_bhsd, mixtral.n_layers, fa.WGMMA)], card,
+        focus=(gmm.WGMMA, fa.WGMMA, "direct_copy"))[0]
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 10. report
-    def entry(name, source, replaces, n, row):
+    def entry(name, source, replaces, n, row, variant):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "variant": variant, "launches": n, "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     kernels = [
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:84", launches, main_row),
+              "src/repro/kernels/flash_attention.py:84", launches, main_row,
+              main_row["variant"]),
         entry("bucket_reduce", "src/repro_torch/kernels/csrc/bucket_reduce.cu",
-              "src/repro/kernels/bucket_reduce.py:46", br_launches, br_row),
+              "src/repro/kernels/bucket_reduce.py:46", br_launches, br_row,
+              "bucket_reduce"),
         entry("grouped_matmul", "src/repro_torch/kernels/csrc/moe_gmm.cu",
-              "src/repro/kernels/moe_gmm.py:35", gmm_launches, gmm_row),
+              "src/repro/kernels/moe_gmm.py:35", gmm_launches, gmm_row,
+              gmm_row["variant"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -599,14 +690,16 @@ def main():
 def serve(cfg, label, counts, card, focus=()):
     """One request batch through repro_torch.models.lm.generate: weights
     drawn from a seeded generator on the card, batch BATCH, prompt PROMPT,
-    NEW_TOKENS greedy tokens. ``counts`` lists (name, wrapper, expected):
-    each wrapper's launch count is set to 0 just before a request batch and
-    must read ``expected`` just after it. Two runs must give the same
+    NEW_TOKENS greedy tokens. ``counts`` lists (name, wrapper, expected,
+    variant): each wrapper's launch counts are set to 0 just before a
+    request batch, and its total and its count on ``variant`` must both
+    read ``expected`` just after it. Two runs must give the same
     tokens, and a step-by-step replay must give finite logits whose greedy
     picks are those tokens. Then a profiler trace of one prefill and three
     decode steps. Returns the counts of the first run, in order."""
     import torch
     from repro_torch.common.param import tree_leaves_with_path
+    from repro_torch.kernels import _build
     from repro_torch.models import lm
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -624,15 +717,16 @@ def serve(cfg, label, counts, card, focus=()):
 
     runs = []
     for _ in range(2):
-        for _, wrapper, _ in counts:
-            wrapper.launches = 0
+        for _, wrapper, _, _ in counts:
+            _build.reset_launches(wrapper)
         timings: dict = {}
         toks = lm.generate(params, batch, cfg, n_steps=NEW_TOKENS, timings=timings)
-        got = [wrapper.launches for _, wrapper, _ in counts]
-        for (name, _, expected), n in zip(counts, got):
-            if n != expected:
-                fail(f"{label}: {name} kernel launched {n} times in a request batch, "
-                     f"expected {expected}")
+        got = [wrapper.launches for _, wrapper, _, _ in counts]
+        for (name, wrapper, expected, variant), n in zip(counts, got):
+            by_variant = dict(wrapper.launches_by_variant)
+            if n != expected or by_variant[variant] != expected:
+                fail(f"{label}: {name} kernel launched {n} times in a request batch "
+                     f"({by_variant}), expected {expected}, all on {variant}")
         runs.append((toks, timings, got))
     (toks, _, launches), (toks2, timings, _) = runs
     if toks.shape != (BATCH, NEW_TOKENS) or not torch.equal(toks, toks2):
@@ -661,7 +755,8 @@ def serve(cfg, label, counts, card, focus=()):
     prefill_ms = timings["prefill_s"] * 1e3
     decode_ms = timings["decode_s"] * 1e3 / (NEW_TOKENS - 1)
     tok_s = BATCH * NEW_TOKENS / (timings["prefill_s"] + timings["decode_s"])
-    counted = ", ".join(f"{n} {name} launches" for (name, _, _), n in zip(counts, launches))
+    counted = ", ".join(f"{n} {name} launches on {variant}"
+                        for (name, _, _, variant), n in zip(counts, launches))
     print(f"[{label}] batch {BATCH}, prompt {PROMPT}, {NEW_TOKENS} new tokens, greedy, "
           f"on {card}: prefill {prefill_ms:.2f} ms, decode {decode_ms:.2f} ms/step, "
           f"{tok_s:.1f} tokens/s, peak memory {peak_gb:.2f} GB, {counted}", flush=True)

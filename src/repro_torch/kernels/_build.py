@@ -1,7 +1,8 @@
 """Build, load and count the port's CUDA kernels, safely across threads.
 
 Each kernel is one source ``csrc/<name>.cu`` with a plain C interface
-(no PyTorch headers, so ``nvcc`` takes seconds). It is compiled for
+(no PyTorch headers, so ``nvcc`` takes seconds); the tensor-core kernels
+share the Hopper helpers of ``csrc/hopper.cuh``. It is compiled for
 ``sm_90a`` at first use into ``build/repro_torch_kernels/`` at the root
 of the checkout and bound through ``ctypes``. Nothing is built when a
 module is imported.
@@ -50,10 +51,13 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     """Where the build of ``csrc/<name>.cu`` lives: named by the hash of
-    the source and the flags, so a stale build is never loaded."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    the source, of every header in ``csrc/`` (``*.cuh``, which the sources
+    share) and of the flags, so a stale build is never loaded."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> list[pathlib.Path]:
@@ -119,8 +123,29 @@ def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
                           + lib.repro_cuda_error_string(err).decode())
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, variant: str | None = None) -> None:
     """Add one to ``wrapper.launches``, the count a run reads to show that
-    its path went through the kernel."""
+    its path went through the kernel, and to
+    ``wrapper.launches_by_variant[variant]`` where the wrapper has several
+    kernels, so a run shows which one it took."""
     with _LOCK:
         wrapper.launches += 1
+        if variant is not None:
+            wrapper.launches_by_variant[variant] += 1
+
+
+def reset_launches(wrapper) -> None:
+    """Set ``wrapper.launches`` and every per-variant count to 0."""
+    with _LOCK:
+        wrapper.launches = 0
+        for key in getattr(wrapper, "launches_by_variant", {}):
+            wrapper.launches_by_variant[key] = 0
+
+
+def tma_describable(t) -> bool:
+    """Whether a TMA tensor map can describe ``t`` as it lies: a 16-byte
+    aligned base, a contiguous last dim, and every other stride a positive
+    multiple of 16 bytes. Reads only metadata (meta tensors do)."""
+    step = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(s > 0 and s % step == 0 for s in t.stride()[:-1]))

@@ -6,39 +6,49 @@
 // e, x (E, T, D), w (E, D, F), out (E, T, F), with an f32 accumulator over
 // the whole of D and the result cast once to the inputs' type. The TPU
 // kernel walks D as the innermost grid axis, carrying the sum in a VMEM
-// scratch tile from one grid step to the next; here one block owns one
-// (expert, T tile, F tile) output tile and walks D in a loop of its own,
-// with the sum in registers, so nothing carries over between blocks.
+// scratch tile from one grid step to the next; here one block owns an
+// output tile and walks D in a loop of its own, with the sum in registers,
+// so nothing carries over between blocks (and no split of D across blocks:
+// two launches give the same bits).
 //
 // What bounds it on this card: operations. At mixtral-8x22b's prefill
 // shape (E 8, T 1312, D 6144, F 16384) one call is 2*E*T*D*F = 2.11e12
 // FLOPs, 2.14 ms at the dense bf16 tensor-core peak, while its bytes
 // (x, w and out once each, 2.1 GB) take 0.62 ms at 3.35 TB/s.
 //
-// What the design does about it.
-//  * bf16: tensor cores through PTX `mma.sync` m16n8k16 (bf16 operands,
-//    f32 accumulation). A block of 8 warps owns a 128 x 128 output tile;
-//    each warp a 64 x 32 part of it, 4 x 4 mma tiles held in registers.
-//    D is walked in steps of 32: the x and w tiles of the next step are
-//    loaded from device memory into registers while the tensor cores work
-//    on the current step's tiles in shared memory (read with `ldmatrix`,
-//    w through its transposing form, so w is used in its stored row-major
-//    layout). Rows of shared memory are padded so that `ldmatrix` reads
-//    no bank twice.
-//  * f32: FMA on the CUDA cores in full f32 (no TF32: the tests hold f32
-//    to 1e-4 * D), a 64 x 64 tile per block, 4 x 4 outputs per thread.
-//  * Blocks are ordered with the T tiles fastest, so the blocks that share
-//    one w tile run together and read it from L2: w, the largest operand,
-//    comes from device memory about once.
-//  * Ragged T, D and F are masked in the loads (zeros) and the stores, so
-//    every shape runs; 16-byte loads are used where the wrapper says rows
-//    are 16-byte aligned, element loads elsewhere.
-// wgmma, TMA, a multi-stage shared-memory pipeline and a persistent grid
-// are left for a later version.
+// Three kernels; the wrapper (kernels/moe_gmm.py, `variant`) picks one by
+// type and layout before the launch.
+//  * gmm_wgmma_kernel, bf16 whose operands TMA can describe (16-byte
+//    aligned base, every stride but the last a multiple of 8 elements):
+//    only wgmma reaches the tensor cores' full rate, and the old single
+//    shared-memory stage stalled them at every K step. So: a persistent
+//    grid of one block per SM walks the output tiles (128 x 256) with the
+//    T tiles fastest, so the blocks that share one w tile run together and
+//    w, the largest operand, comes from device memory about once. In each
+//    block one producer warp keeps TMA loads in flight into a ring of 4
+//    shared-memory stages (x tile 128 x 64, K-major; w tile 64 x 256 as four
+//    64-column panels, MN-major: read through wgmma's transpose-B bit, never
+//    transposed in memory), each stage guarded by a "full" and an "empty"
+//    mbarrier; two consumer warpgroups each own 64 x 256 of the tile and run
+//    m64n256k16 wgmma on it with f32 accumulators in registers (128 a
+//    thread), keeping one wgmma group in flight while they release the
+//    previous stage. setmaxnreg moves registers from the producer (40) to the
+//    consumers (232). The ring runs on across tiles, so the next tile's loads
+//    overlap this tile's epilogue, which writes bf16 pairs from registers,
+//    masking the ragged T and F edges; TMA fills loads past T, D and F with
+//    zeros.
+//  * gmm_bf16_kernel, the other bf16 layouts (ragged shapes whose strides
+//    TMA cannot take): `mma.sync` m16n8k16 on 128 x 128 tiles, one shared
+//    stage with the next K step's loads in registers, `ldmatrix` reading x
+//    and (transposed) w; loads and stores masked, so every shape runs.
+//  * gmm_f32_kernel, f32: FMA on the CUDA cores in full f32 (no TF32: the
+//    tests hold f32 to 1e-4 * D), a 64 x 64 tile per block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -244,15 +254,168 @@ __global__ void __launch_bounds__(NT) gmm_bf16_kernel(Params p) {
   }
 }
 
+// ------------------------------------------------------------ bf16, wgmma
+
+namespace wg {
+
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4, THREADS = 384;
+constexpr int A_BYTES = BM * BK * 2;          // x tile: 128 rows of 128 bytes
+constexpr int B_PANEL = BK * 64 * 2;          // one 64-column panel of the w tile
+constexpr int B_BYTES = BK * BN * 2;          // w tile: four panels
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;  // 48 KB
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+
+}  // namespace wg
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                     const __grid_constant__ CUtensorMap tmw, const Params p) {
+  // local names hide the mma.sync kernel's tile constants of the same names
+  constexpr int BM = wg::BM, BN = wg::BN, BK = wg::BK, STAGES = wg::STAGES;
+  constexpr int A_BYTES = wg::A_BYTES, B_PANEL = wg::B_PANEL, STAGE_BYTES = wg::STAGE_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int tiles_t = (p.t + BM - 1) / BM;
+  const int tiles_f = (p.f + BN - 1) / BN;
+  const int n_tiles = p.e * tiles_f * tiles_t;
+  const int k_iters = (p.d + BK - 1) / BK;
+  const int role = threadIdx.x / 128;  // 0: producer, 1 and 2: consumers
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == 0) {
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tensor_map(&tmx);
+      hopper::prefetch_tensor_map(&tmw);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int tt = tile % tiles_t, rest = tile / tiles_t;
+        const int tf = rest % tiles_f, e = rest / tiles_f;
+        for (int k = 0; k < k_iters; ++k) {
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* a = smem + stage * STAGE_BYTES;
+          uint8_t* b = a + A_BYTES;
+          hopper::mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
+          hopper::tma_load_3d(a, &tmx, &full[stage], k * BK, tt * BM, e);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            hopper::tma_load_3d(b + j * B_PANEL, &tmw, &full[stage], tf * BN + j * 64, k * BK, e);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int c = role - 1;  // rows 64c .. 64c + 63 of the tile
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[128];
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int tt = tile % tiles_t, rest = tile / tiles_t;
+      const int tf = rest % tiles_f, e = rest / tiles_f;
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int k = 0; k < k_iters; ++k) {
+        hopper::mbar_wait(&full[stage], phase);
+        const uint8_t* a = smem + stage * STAGE_BYTES + c * 64 * 128;
+        const uint8_t* b = smem + stage * STAGE_BYTES + A_BYTES;
+        hopper::fence_operands(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          hopper::wgmma_m64n256k16_ss<1>(acc, hopper::desc_kmajor(a + kk * 32),
+                                         hopper::desc_mnmajor(b + kk * 2048, B_PANEL), 1);
+        hopper::wgmma_commit();
+        hopper::fence_operands(acc);
+        hopper::wgmma_wait<1>();  // the previous stage's products are done
+        if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc);
+      if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+
+      // epilogue: bf16 pairs straight from the accumulator fragment
+      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.out) + e * p.soe;
+      const int row0 = tt * BM + c * 64 + warp * 16 + (lane >> 2);
+      const int col0 = tf * BN + 2 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < 128; i += 2) {
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        const int col = col0 + 8 * (i >> 2);
+        if (row < p.t && col < p.f)
+          *reinterpret_cast<__nv_bfloat162*>(o + row * p.sot + col) =
+              __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      }
+    }
+  }
+}
+
+// Encodes the two tensor maps and launches one block per SM (or per tile,
+// if fewer). Returns cudaGetLastError() after the launch, or a negative
+// hopper:: code if a tensor map was refused.
+int launch_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap tmx, tmw;
+  const uint64_t x_dims[3] = {uint64_t(p.d), uint64_t(p.t), uint64_t(p.e)};
+  const uint64_t x_strides[2] = {uint64_t(p.sxt) * 2, uint64_t(p.sxe) * 2};
+  const uint32_t x_box[3] = {64, wg::BM, 1};
+  const uint64_t w_dims[3] = {uint64_t(p.f), uint64_t(p.d), uint64_t(p.e)};
+  const uint64_t w_strides[2] = {uint64_t(p.swd) * 2, uint64_t(p.swe) * 2};
+  const uint32_t w_box[3] = {64, wg::BK, 1};
+  int err = hopper::encode_bf16_map(&tmx, p.x, 3, x_dims, x_strides, x_box);
+  if (err) return err;
+  err = hopper::encode_bf16_map(&tmw, p.w, 3, w_dims, w_strides, w_box);
+  if (err) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(gmm_wgmma_kernel,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          wg::SMEM_BYTES);
+  if (cerr != cudaSuccess) return int(cerr);
+  int dev = 0, sms = 0;
+  cerr = cudaGetDevice(&dev);
+  if (cerr == cudaSuccess) cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (cerr != cudaSuccess) return int(cerr);
+  const long long tiles =
+      (long long)p.e * ((p.f + wg::BN - 1) / wg::BN) * ((p.t + wg::BM - 1) / wg::BM);
+  const int grid = int(tiles < sms ? tiles : sms);
+  gmm_wgmma_kernel<<<grid, wg::THREADS, wg::SMEM_BYTES, stream>>>(tmx, tmw, p);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); both
-// accumulate in f32. Strides are in elements; each operand's last dim is
-// contiguous. vec_x / vec_w: 1 when every row of x / w starts 16-byte
-// aligned. Returns cudaGetLastError() after the launch (0 on success).
-int repro_grouped_matmul(int dtype, const void* x, const void* w, void* out, int e, int t,
+// kernel: 0 = gmm_f32_kernel (float32, CUDA cores), 1 = gmm_bf16_kernel
+// (bfloat16, mma.sync), 2 = gmm_wgmma_kernel (bfloat16; x, w and out
+// TMA-describable: 16-byte-aligned bases, strides that are multiples of 8
+// elements, f a multiple of 8; the wrapper checks this before it picks the
+// kernel). All accumulate in f32. Strides are in elements; each operand's
+// last dim is contiguous. vec_x / vec_w (kernel 1 only): 1 when every row
+// of x / w starts 16-byte aligned. Returns cudaGetLastError() after the
+// launch (0 on success), or a negative hopper:: code if a tensor map was
+// refused.
+int repro_grouped_matmul(int kernel, const void* x, const void* w, void* out, int e, int t,
                          int d, int f, long long sxe, long long sxt, long long swe,
                          long long swd, long long soe, long long sot, int vec_x, int vec_w,
                          void* stream) {
@@ -263,20 +426,20 @@ int repro_grouped_matmul(int dtype, const void* x, const void* w, void* out, int
   p.vec_x = vec_x; p.vec_w = vec_w;
   if (e < 1 || t < 1 || f < 1 || d < 0) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (kernel == 0) {
     const dim3 grid((t + F_BM - 1) / F_BM, (f + F_BN - 1) / F_BN, e);
     gmm_f32_kernel<<<grid, F_NT, 0, st>>>(p);
-  } else if (dtype == 1) {
+  } else if (kernel == 1) {
     const dim3 grid((t + BM - 1) / BM, (f + BN - 1) / BN, e);
     gmm_bf16_kernel<<<grid, NT, 0, st>>>(p);
+  } else if (kernel == 2 && d > 0) {
+    return launch_wgmma(p, st);
   } else {
     return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
 }
 
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* repro_cuda_error_string(int err) { return hopper::error_string(err); }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
-"""Flash attention forward as a CUDA kernel for Hopper (sm_90a).
+"""Flash attention forward as CUDA kernels for Hopper (sm_90a).
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro.kernels.flash_attention.flash_attention_bhsd``; the note at the top
-of the source says what bounds it and how it is laid out. ``_build``
-compiles it at first use, binds it through ``ctypes`` and keeps its launch
-count; nothing is built when this module is imported.
+The kernels (``csrc/flash_attention.cu``) replace the Pallas TPU kernel
+``repro.kernels.flash_attention.flash_attention_bhsd``. ``variant`` picks
+one by type, head dim and layout: bf16 on the tensor cores through TMA and
+``wgmma``, or f32 arithmetic on the CUDA cores. The note at the top of the
+source says what bounds them and how they are laid out. ``_build`` compiles
+them at first use, binds them through ``ctypes`` and keeps the launch
+counts; nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA, CUDA_CORES = "fa_fwd_wgmma_kernel", "fa_fwd_kernel"
 
 
 def build() -> pathlib.Path:
@@ -59,33 +63,59 @@ def _check(q, k, v):
         raise ValueError(f"head dim {d} not built; the kernel has {HEAD_DIMS}")
 
 
+def variant(q, k, v) -> str:
+    """The kernel that runs ``flash_attention_bhsd(q, k, v)``, chosen from
+    type, head dim and layout alone before any launch (no data is read, so
+    meta tensors do): ``fa_fwd_wgmma_kernel`` for bf16 with head dim 64 or
+    128, at least one key, and q, k, v that TMA can describe
+    (``_build.tma_describable``); ``fa_fwd_kernel`` otherwise (f32, head dims
+    16 and 32, other layouts). This is a selection, not a fallback: if the
+    chosen kernel fails to build or launch, the wrapper raises and nothing
+    retries it on another variant."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS and k.shape[2] > 0
+            and all(_build.tma_describable(t) for t in (q, k, v))):
+        return WGMMA
+    return CUDA_CORES
+
+
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, H, Sq, D); k/v: (B, K, Skv, D), any strides with a contiguous
     last dim. Returns (B, H, Sq, D) in q's dtype, as a view of a buffer laid
     out (B, Sq, H, D).
 
-    Launches the CUDA kernel on the current stream and adds one to
-    ``flash_attention_bhsd.launches``; raises if the build or the launch
-    fails (``KernelError``). CPU tensors are refused: the plain version is
-    ``repro_torch.kernels.ref.flash_attention_ref``."""
+    Launches the kernel that ``variant`` names on the current stream and
+    adds one to ``flash_attention_bhsd.launches`` and to
+    ``flash_attention_bhsd.launches_by_variant[variant]``; raises if the
+    build or the launch fails (``KernelError``). CPU tensors are refused:
+    the plain version is ``repro_torch.kernels.ref.flash_attention_ref``."""
     _check(q, k, v)
     b, h, sq, d = q.shape
-    kk, skv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
-    lib = _build.load("flash_attention", _bind)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in (t.stride(0), t.stride(2), t.stride(1))))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention_fwd(
-            _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, h, kk, sq, skv, strides, 1.0 / math.sqrt(d),
-            int(causal), int(window), stream)
-    _build.check_launch(lib, err, "flash-attention")
-    _build.count_launch(flash_attention_bhsd)
+    kernel = variant(q, k, v)
+    _launch(kernel, q, k, v, out, causal, window)
+    _build.count_launch(flash_attention_bhsd, kernel)
     return out
 
 
+def _launch(kernel, q, k, v, out, causal, window):
+    """The one call of the C entry: runs ``kernel`` on checked inputs into
+    ``out`` (B, H, Sq, D) on the current stream; raises ``KernelError`` if
+    the build or the launch fails. Counts nothing."""
+    b, h, sq, d = q.shape
+    kk, skv = k.shape[1], k.shape[2]
+    lib = _build.load("flash_attention", _bind)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in (t.stride(0), t.stride(2), t.stride(1))))
+    code = 2 if kernel == WGMMA else _DTYPE_CODE[q.dtype]  # the C entry's kernel code
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention_fwd(
+            code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, kk, sq, skv, strides, 1.0 / math.sqrt(d), int(causal), int(window), stream)
+    _build.check_launch(lib, err, kernel)
+
+
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.launches_by_variant = dict.fromkeys((WGMMA, CUDA_CORES), 0)

@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -171,9 +172,119 @@ def test_grouped_matmul_cuda_tensors_always_launch_the_kernel(card, dtype, monke
 
     monkeypatch.setattr(tref, "grouped_matmul_ref", refuse)
     before = moe_gmm.grouped_matmul.launches
+    by_variant = dict(moe_gmm.grouped_matmul.launches_by_variant)
+    expected = dict.fromkeys(by_variant, 0)
     for (e, t, d, f), exp in zip(shapes, exps):
         x, w = (torch.from_numpy(a).cuda().to(dtype) for a in _gmm_inputs(e, t, d, f, seed=3))
         out = tops.grouped_matmul(x, w)
         tol = 1e-4 if dtype == torch.float32 else 5e-2
         assert (out.float() - exp.float()).abs().max().item() <= tol * d
+        if dtype == torch.float32:
+            expected[moe_gmm.F32] += 1
+        else:  # contiguous inputs: TMA describes them when D and F are multiples of 8
+            expected[moe_gmm.WGMMA if d % 8 == 0 and f % 8 == 0 else moe_gmm.MMA_SYNC] += 1
     assert moe_gmm.grouped_matmul.launches == before + len(shapes)
+    assert {k: moe_gmm.grouped_matmul.launches_by_variant[k] - by_variant[k]
+            for k in by_variant} == expected
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_tensors_always_launch_the_kernel(card, monkeypatch):
+    """Every swept shape launches a kernel on the card, the one the variant
+    rule names (the wgmma kernel for bf16 with head dim 64 or 128); the
+    plain version is never reached."""
+    cases = [(c, dt) for c in SWEEP for dt in (torch.float32, torch.bfloat16)]
+    inputs = [tuple(torch.from_numpy(a).cuda().to(dt) for a in _qkv(*c[:6], seed=3))
+              for c, dt in cases]
+    exps = [tref.flash_attention_ref(*qkv, causal=c[6], window=c[7])
+            for (c, _), qkv in zip(cases, inputs)]
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(tref, "flash_attention_ref", refuse)
+    before = flash_attention_bhsd.launches
+    by_variant = dict(flash_attention_bhsd.launches_by_variant)
+    expected = dict.fromkeys(by_variant, 0)
+    for ((b, h, kk, sq, skv, d, causal, window), dt), qkv, exp in zip(cases, inputs, exps):
+        out = tops.flash_attention(*qkv, causal=causal, window=window)
+        tol = DTYPES[str(dt).replace("torch.", "")][2]
+        assert torch.allclose(out.float(), exp.float(), atol=tol, rtol=tol)
+        wgmma = dt == torch.bfloat16 and d in tfa.WGMMA_HEAD_DIMS
+        expected[tfa.WGMMA if wgmma else tfa.CUDA_CORES] += 1
+    assert flash_attention_bhsd.launches == before + len(cases)
+    assert {k: flash_attention_bhsd.launches_by_variant[k] - by_variant[k]
+            for k in by_variant} == expected
+
+
+# --------------------------------------------------- the choice of variant
+
+def _meta(shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("product,x_shape,w_shape", [
+    ("gate", (8, 1312, 6144), (8, 6144, 16384)),
+    ("up", (8, 1312, 6144), (8, 6144, 16384)),
+    ("down", (8, 1312, 16384), (8, 16384, 6144)),
+])
+def test_gmm_variant_takes_wgmma_for_mixtrals_prefill_products(product, x_shape, w_shape):
+    """mixtral-8x22b's three expert products at batch 8 x 512 (4 groups of
+    1024 tokens at capacity 328), as models/moe.py passes them."""
+    assert moe_gmm.variant(_meta(x_shape), _meta(w_shape)) == moe_gmm.WGMMA
+
+
+@pytest.mark.parametrize("x,w,expected", [
+    # the ragged sweep shape whose D and F are multiples of 8: TMA describes
+    # it, and the wgmma kernel masks its ragged T, D and F tiles
+    (lambda: _meta((3, 100, 72)), lambda: _meta((3, 72, 40)), moe_gmm.WGMMA),
+    # rows of 100 and 26 bytes: no TMA
+    (lambda: _meta((2, 37, 50)), lambda: _meta((2, 50, 13)), moe_gmm.MMA_SYNC),
+    # F not a multiple of 8: the output's rows are not 16-byte aligned
+    (lambda: _meta((2, 64, 64)), lambda: _meta((2, 64, 16))[:, :, :12], moe_gmm.MMA_SYNC),
+    # a view whose base is one element past a 16-byte boundary
+    (lambda: _meta((8, 1312, 6152))[:, :, 1:6145], lambda: _meta((8, 6144, 16384)),
+     moe_gmm.MMA_SYNC),
+    # D = 0: nothing for TMA to load; the earlier kernel writes the zeros
+    (lambda: _meta((2, 16, 0)), lambda: _meta((2, 0, 16)), moe_gmm.MMA_SYNC),
+    # f32 stays on the CUDA cores
+    (lambda: _meta((8, 1312, 6144), torch.float32),
+     lambda: _meta((8, 6144, 16384), torch.float32), moe_gmm.F32),
+    (lambda: _meta((2, 37, 50), torch.float32), lambda: _meta((2, 50, 13), torch.float32),
+     moe_gmm.F32),
+])
+def test_gmm_variant_by_type_and_layout(x, w, expected):
+    assert moe_gmm.variant(x(), w()) == expected
+
+
+@pytest.mark.parametrize("arch,b,h,kk,d", [
+    ("yi-9b", 8, 32, 4, 128),
+    ("mixtral-8x22b", 8, 48, 8, 128),
+])
+def test_fa_variant_takes_wgmma_at_the_serving_shapes(arch, b, h, kk, d):
+    """The prefill shapes of both served models, as ops.flash_attention
+    passes them: BSHD tensors read through BHSD views."""
+    q = _meta((b, 512, h, d)).transpose(1, 2)
+    k, v = (_meta((b, 512, kk, d)).transpose(1, 2) for _ in range(2))
+    assert tfa.variant(q, k, v) == tfa.WGMMA
+
+
+@pytest.mark.parametrize("dtype,d,misaligned,expected", [
+    (torch.bfloat16, 64, False, tfa.WGMMA),
+    (torch.float32, 128, False, tfa.CUDA_CORES),
+    (torch.float32, 64, False, tfa.CUDA_CORES),
+    (torch.bfloat16, 32, False, tfa.CUDA_CORES),
+    (torch.bfloat16, 16, False, tfa.CUDA_CORES),
+    (torch.bfloat16, 128, True, tfa.CUDA_CORES),
+])
+def test_fa_variant_by_type_head_dim_and_layout(dtype, d, misaligned, expected):
+    q = _meta((2, 128, 4, d), dtype).transpose(1, 2)
+    k = _meta((2, 128, 2, d), dtype).transpose(1, 2)
+    v = _meta((2, 128, 2, d + 1), dtype)[..., 1:].transpose(1, 2) if misaligned else k
+    assert tfa.variant(q, k, v) == expected
+
+
+def test_fa_variant_needs_a_key():
+    q = _meta((1, 16, 2, 128)).transpose(1, 2)
+    k = _meta((1, 0, 2, 128)).transpose(1, 2)
+    assert tfa.variant(q, k, k) == tfa.CUDA_CORES
